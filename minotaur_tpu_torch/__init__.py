@@ -1,0 +1,18 @@
+"""minotaur_tpu_torch: the PyTorch/CUDA port of minotaur_tpu.
+
+The JAX package `minotaur_tpu` is the reference; this package keeps its
+module paths and public names (`engines.ipm.build_batch_solver`,
+`bnb.step.build_node_step`, `bnb.bnb.BranchAndBound`, ...) so each
+counterpart is easy to find.  It imports torch and numpy and never jax.
+
+Ported so far: the LP/QP branch-and-bound main path (staging, linear
+FBBT, the batched Mehrotra IPM, the node superstep and the
+reliability-branching host loop), with the two TPU kernels of that path
+rewritten as CUDA kernels for Hopper (`ops/spd_inverse.py`,
+`ops/spd_solve.py`, sources in `csrc/`).  Paths outside the slice raise
+NotImplementedError; ROADMAP.md lists them.
+"""
+
+from . import utils  # noqa: F401
+
+__version__ = "0.1.0"

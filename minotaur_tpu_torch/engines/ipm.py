@@ -1,0 +1,818 @@
+"""Batched primal-dual interior-point engine, LP/QP branch.
+
+Port of minotaur_tpu/engines/ipm.py for problems whose relaxation is an
+LP or a convex QP (everything not under `has_nl` there).  The JAX engine
+is a one-lane solver vmapped over lanes; here every function takes the
+lane axis explicitly: bounds, starts and iterates are (B, .) tensors and
+the problem data (A, c, Q) is shared.  The math, the two-phase drive, the
+certificates and the status machine follow the JAX code line by line;
+its docstrings explain the derivations.
+
+`vmap` of a `while_loop` keeps a finished lane's carry frozen while the
+other lanes iterate.  `_while` does the same with a per-lane `active`
+mask that gates every state update (iterate, k, best_*, stall, nu).  The
+host reads `active.any()` once per iteration, so each iteration costs
+one device-to-host sync.
+
+The two TPU kernels of this path are `ops/spd_inverse.py` (factorize +
+explicit inverse, once per iteration per condensed matrix) and
+`ops/spd_solve.py` (every direction solve through that inverse).  On a
+CUDA device they run as hand-written CUDA kernels; on the CPU as their
+plain PyTorch versions.
+
+Out of the slice (raise NotImplementedError): nonlinear rows or
+objective, `light_phase1`, `tail_corr_f32`, `gondzio_correctors > 0`.
+`use_pallas` is accepted and has no effect: the port always runs its own
+kernel (on the JAX CPU backend that flag is inert too).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..device import F32, F64, check_fp32_matmul, resolve_device
+from ..ops.spd_inverse import spd_inverse
+from ..ops.spd_solve import spd_solve
+from ..utils.types import EngineStatus
+from .staging import StagedProblem
+
+_BIG = 1e20
+
+
+@dataclasses.dataclass(frozen=True)
+class IPMOptions:
+    """Same fields and defaults as minotaur_tpu.engines.ipm.IPMOptions
+    (see its comments for what each knob trades; its measurements were
+    taken on a TPU and are not the port's)."""
+    max_iters: int = 90
+    tol: float = 1e-8
+    tau: float = 0.995          # fraction-to-boundary
+    reg_primal: float = 1e-9
+    reg_dual: float = 1e-9
+    sigma_pow: int = 3          # Mehrotra sigma = (mu_aff/mu)^pow
+    infeas_mu: float = 1e-10    # mu below this + primal infeasible => INFEAS
+    # factorize in f32 with Jacobi pre-scaling, refine in f64
+    factor_f32: bool = True
+    # refinement rounds inside each f32 SPD solve (K2's refine_steps)
+    refine_steps: int = 2
+    kkt_rounds: int = 1         # block-level defect-correction rounds
+    # TPU-only switch of the JAX package; the port always runs K1
+    use_pallas: bool = False
+    # retry a failed f32 factorization once with a Gershgorin shift
+    chol_retry: bool = True
+    # keep the f32 factorization in the tail (deeper defect correction)
+    tail_factor_f32: bool = True
+    tail_kkt_rounds: int = 8
+    tail_tol: float = 1e-5
+    # all-f32 phase-1 iteration arithmetic: not yet ported
+    light_phase1: bool = False
+    # f32 tail correction residuals: not yet ported
+    tail_corr_f32: bool = False
+    # assemble the condensed matrix in the factor dtype
+    light_assembly: bool = True
+    affine_kkt_rounds: Optional[int] = 1
+    acceptable_tol: float = 1e-6   # NL only (not yet ported)
+    # Gondzio centrality correctors: not yet ported
+    gondzio_correctors: int = 0
+
+
+class IPMResult(NamedTuple):
+    x: torch.Tensor           # (B, n) primal point
+    obj: torch.Tensor         # (B,) objective value (incl. const)
+    dual_bound: torch.Tensor  # (B,) certified lower bound (LP) or obj-eps
+    y: torch.Tensor           # (B, m) row duals
+    status: torch.Tensor      # (B,) EngineStatus codes
+    iters: torch.Tensor       # (B,)
+    kkt_err: torch.Tensor     # (B,)
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what}: not yet ported, see ROADMAP.md")
+
+
+def check_slice(sp: StagedProblem, opts: IPMOptions) -> None:
+    """Raise for inputs or options outside the ported LP/QP slice."""
+    if len(sp.nl_rows) or sp.obj_nl is not None or sp.con_nl is not None:
+        raise _not_ported("nonlinear rows / nonlinear objective (IPM NL path)")
+    if opts.light_phase1:
+        raise _not_ported("light_phase1")
+    if opts.tail_corr_f32:
+        raise _not_ported("tail_corr_f32")
+    if opts.gondzio_correctors > 0:
+        raise _not_ported("gondzio_correctors>0")
+
+
+def _fin(b):
+    return b.abs() < _BIG
+
+
+def _amax0(v):
+    """Row max of v with initial=0 (jnp.max(..., initial=0.0)): an empty
+    row gives 0 instead of raising."""
+    if v.shape[-1] == 0:
+        return v.new_zeros(v.shape[:-1])
+    return torch.clamp(v.amax(dim=-1), min=0.0)
+
+
+def _max_step(v, dv, tau, mask):
+    """Largest alpha in (0, 1] with v + alpha*dv >= (1-tau)*v on mask,
+    per lane."""
+    bad = (dv < 0) & mask
+    ratio = torch.where(bad, -tau * v / torch.where(bad, dv, -1.0), 1.0)
+    return torch.clamp(ratio.amin(dim=1), max=1.0)
+
+
+def _sel(mask, a, b):
+    """Lane-wise select between two tensors whose first axis is the lane."""
+    m = mask.reshape(mask.shape + (1,) * (a.dim() - 1))
+    return torch.where(m, a, b)
+
+
+def _sel_state(mask, a, b):
+    return tuple(_sel(mask, x, y) for x, y in zip(a, b))
+
+
+def _make_spd_solver(M: torch.Tensor, opts: IPMOptions, use_f32=None,
+                     out_dtype=None):
+    """Batched SPD solve M x = r (M: (B, k, k)) through an explicit
+    inverse of the Jacobi-scaled matrix (K1) and the refined solve (K2).
+    Returns (solve, bad) with bad (B,) bool: both factorizations failed
+    and the lane got the identity."""
+    k = M.shape[-1]
+    diag = torch.diagonal(M, dim1=1, dim2=2)
+    dmax = torch.clamp(_amax0(diag.abs()), min=1e-30)
+    d = torch.sqrt(torch.maximum(diag, 1e-12 * dmax[:, None]))
+    dinv = 1.0 / d
+
+    if use_f32 is None:
+        use_f32 = opts.factor_f32
+    if use_f32:
+        dinv_f = dinv.to(F32)
+        Ms = M.to(F32) * dinv_f[:, :, None] * dinv_f[:, None, :]
+    else:
+        Ms = M * dinv[:, :, None] * dinv[:, None, :]
+    Ms = Ms.contiguous()
+
+    Minv_s, flag = spd_inverse(Ms)
+    bad = flag >= 2.0
+    if use_f32 and not opts.chol_retry:
+        # single-factorization path: failed lanes keep the identity
+        bad2 = bad
+        shift_vec = torch.zeros_like(d)
+    else:
+        # Gershgorin-shifted retry, run only on the failed lanes (the
+        # JAX code factorizes every lane twice and selects; the result
+        # is the same)
+        dms = torch.diagonal(Ms, dim1=1, dim2=2)
+        gersh = torch.clamp(
+            (dms - (Ms.abs().sum(dim=2) - dms.abs())).amin(dim=1), max=0.0)
+        shift = torch.where(bad, torch.clamp(-gersh, min=1e-6) + 1e-6,
+                            torch.zeros_like(gersh))
+        bad2 = torch.zeros_like(bad)
+        if bool(bad.any()):
+            idx = torch.nonzero(bad).flatten()
+            eye = torch.eye(k, dtype=Ms.dtype, device=Ms.device)
+            Ms2 = Ms[idx] + (shift[idx] + 1e-7)[:, None, None] * eye
+            Minv2, flag2 = spd_inverse(Ms2.contiguous())
+            Minv_s = Minv_s.index_copy(0, idx, Minv2)
+            bad2 = bad2.index_copy(0, idx, flag2 >= 2.0)
+        # the operator actually factorized (for refinement): the shift
+        # lives in scaled space, adding shift * d^2 on the diagonal
+        shift_vec = torch.where(bad, shift + 1e-7,
+                                torch.zeros_like(shift))[:, None] * d * d
+
+    if out_dtype is None:
+        out_dtype = M.dtype
+    dinv_m = dinv.to(M.dtype)
+    shift_m = shift_vec.to(M.dtype)
+    steps = opts.refine_steps if use_f32 else max(opts.refine_steps, 3)
+    M_c = M.contiguous()
+
+    def solve(r):
+        return spd_solve(Minv_s, M_c, dinv_m, shift_m, r, steps, out_dtype)
+
+    return solve, (bad & bad2)
+
+
+def _split64(a):
+    """hi/lo f32 split of an f64 operand (hi + lo == a exactly)."""
+    hi = a.to(F32)
+    return hi, (a - hi.to(F64)).to(F32)
+
+
+def _spmv(hi_lo, v64, trans=False):
+    """f64-class product of a SHARED f64 operator with the lane rows of
+    v64 via hi/lo f32 matmuls (see the JAX spmv): op @ v per lane, or
+    op.T @ v with trans."""
+    hi, lo = hi_lo
+    if not trans:
+        hi, lo = hi.T, lo.T
+    vh = v64.to(F32)
+    vl = (v64 - vh.to(F64)).to(F32)
+    main = vh @ hi
+    corr = vl @ hi + vh @ lo
+    return main.to(F64) + corr.to(F64)
+
+
+def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
+                        device="cuda") -> Callable:
+    """Returns solve(A, clb, cub, vlb, vub, x0, y0=None) -> IPMResult on
+    lane-batched tensors (vlb, vub, x0: (B, n); y0: (B, m)); A, clb, cub
+    are shared.  `solve.with_objective(A, clb, cub, vlb, vub, x0, c_in,
+    y0=None)` swaps the linear objective (c_in: (n,) or (B, n))."""
+    check_slice(sp, opts)
+    dev = resolve_device(device)
+    check_fp32_matmul(dev)
+
+    n, m = sp.n, sp.m
+    has_q = sp.Qobj is not None
+    is_lp = not has_q
+    condense_x = (not is_lp) or (m >= n)
+    eq_rows_np = np.where(np.isfinite(sp.clb) & np.isfinite(sp.cub) &
+                          (np.abs(sp.cub - sp.clb) <= 1e-12))[0]
+    m_eq = len(eq_rows_np)
+    eq_rows = torch.as_tensor(eq_rows_np, dtype=torch.long, device=dev)
+    eq_mask = torch.zeros(m, dtype=torch.bool, device=dev)
+    eq_mask[eq_rows] = True
+
+    t64 = lambda a: torch.as_tensor(a, dtype=F64, device=dev)  # noqa: E731
+    c_const = t64(sp.c)
+    Q_const = t64(sp.Qobj) if has_q else None
+    Qsym = (Q_const + Q_const.T) if has_q else None
+    Qsym32 = Qsym.to(F32) if has_q else None
+
+    q_psd = False
+    if has_q:
+        _w, _V = np.linalg.eigh(0.5 * (sp.Qobj + sp.Qobj.T))
+        if _w.min() >= -1e-9:
+            q_psd = True
+            _w = np.clip(_w, 0.0, None)
+            q_eigw = t64(_w)
+            q_eigV = t64(_V)
+            q_wpos = torch.as_tensor(_w > 1e-10, device=dev)
+            qV_sp = _split64(q_eigV)
+    PIN = 1e10 if condense_x else 1e16
+
+    def f_obj(x, c):
+        v = (x * c).sum(dim=1)
+        if has_q:
+            v = v + ((x @ Q_const.T) * x).sum(dim=1)
+        return v
+
+    def grad_f(x, c):
+        return c + x @ Qsym if has_q else c + torch.zeros_like(x)
+
+    def solve_impl(A, clb, cub, vlb, vub, x0, c_in, y0=None):
+        B = vlb.shape[0]
+        c_in = c_in.expand(B, n) if c_in.dim() == 1 else c_in
+        lz = torch.cat([vlb, clb.expand(B, m)], dim=1)
+        uz = torch.cat([vub, cub.expand(B, m)], dim=1)
+        fixed = _fin(lz) & _fin(uz) & ((uz - lz) <= 1e-12)
+        fin_l = _fin(lz) & ~fixed
+        fin_u = _fin(uz) & ~fixed
+        nb = torch.clamp(fin_l.sum(dim=1) + fin_u.sum(dim=1), min=1).to(F64)
+        fixed_x = fixed[:, :n]
+        fixed_s = fixed[:, n:]
+        zeros_bn = torch.zeros((B, n), dtype=F64, device=dev)
+        zeros_bm = torch.zeros((B, m), dtype=F64, device=dev)
+
+        def clampz(z):
+            mid_frac = 0.01
+            width = torch.where(fin_l & fin_u, uz - lz, 2.0)
+            lo = torch.where(fin_l, lz + mid_frac * torch.clamp(width, max=100.0),
+                             -_BIG)
+            hi = torch.where(fin_u, uz - mid_frac * torch.clamp(width, max=100.0),
+                             _BIG)
+            z = torch.minimum(torch.maximum(z, lo), hi)
+            return torch.where(fixed, lz, z)
+
+        x_init = clampz(torch.cat([x0, zeros_bm], dim=1))[:, :n]
+        s_init = clampz(torch.cat([zeros_bn, x_init @ A.T], dim=1))[:, n:]
+        z0 = torch.cat([x_init, s_init], dim=1)
+        if y0 is None:
+            zl0 = fin_l.to(F64)
+            zu0 = fin_u.to(F64)
+            y0 = zeros_bm.clone()
+        else:
+            # dual warm start (see the JAX code)
+            y0 = torch.where(torch.isfinite(y0), y0, 0.0)
+            rz = torch.cat([grad_f(x_init, c_in) + y0 @ A, -y0], dim=1)
+            zl0 = torch.where(fin_l, torch.clamp(rz, 1e-2, 1e8), 0.0)
+            zu0 = torch.where(fin_u, torch.clamp(zl0 - rz, 1e-2, 1e8), 0.0)
+
+        def distances(z):
+            dl = torch.where(fin_l, z - lz, 1.0)
+            du = torch.where(fin_u, uz - z, 1.0)
+            return torch.clamp(dl, min=1e-14), torch.clamp(du, min=1e-14)
+
+        # shared operators: f64, f32 copy, and the hi/lo split
+        A32 = A.to(F32)
+        A_sp = _split64(A)
+        absA32 = A32.abs()
+        mx64 = torch.where(fixed_x, 0.0, 1.0).to(F64)
+        fin_clb, fin_cub = _fin(clb), _fin(cub)
+        fin_vlb, fin_vub = _fin(vlb), _fin(vub)
+        box = torch.where(fin_vub & fin_vlb,
+                          torch.maximum(vub.abs(), vlb.abs()), 1e6)
+        abs_clb = torch.where(fin_clb, clb.abs(), 0.0)
+        abs_cub = torch.where(fin_cub, cub.abs(), 0.0)
+
+        def residuals(z, y, zl, zu):
+            x, s = z[:, :n], z[:, n:]
+            rd_x = grad_f(x, c_in) + y @ A - zl[:, :n] + zu[:, :n]
+            rd_s = -y - zl[:, n:] + zu[:, n:]
+            rd_x = torch.where(fixed_x, 0.0, rd_x)
+            rd_s = torch.where(fixed_s, 0.0, rd_s)
+            rp = x @ A.T - s
+            return rd_x, rd_s, rp
+
+        def kkt_error(z, y, zl, zu, rd_x, rd_s, rp):
+            dl, du = distances(z)
+            comp = torch.where(fin_l, dl * zl, 0.0).sum(dim=1) + \
+                torch.where(fin_u, du * zu, 0.0).sum(dim=1)
+            mu = comp / nb
+            sd = torch.clamp((y.abs().sum(dim=1) + zl.sum(dim=1) +
+                              zu.sum(dim=1)) / (n + m), min=1.0)
+            err = torch.maximum(
+                _amax0(rp.abs()),
+                torch.maximum(
+                    torch.cat([rd_x, rd_s], dim=1).abs().amax(dim=1) / sd,
+                    mu / sd))
+            return err, mu
+
+        def _cert_clamp_t(y):
+            t = -y
+            tc = torch.where((t > 0) & ~fin_clb, 0.0, t)
+            return torch.where((tc < 0) & ~fin_cub, 0.0, tc)
+
+        def _rc_clamp(r):
+            rc = torch.where((r > 0) & ~fin_vlb, 0.0, r)
+            return torch.where((rc < 0) & ~fin_vub, 0.0, rc)
+
+        def _row_term(tc):
+            return torch.where(tc > 0, tc * clb,
+                               torch.where(tc < 0, tc * cub, 0.0)).sum(dim=1)
+
+        def _col_term(rc):
+            return torch.where(rc > 0, rc * vlb,
+                               torch.where(rc < 0, rc * vub, 0.0)).sum(dim=1)
+
+        def _cert_lp_terms(tc, r, const):
+            rc = _rc_clamp(r)
+            slack_pen = ((r - rc).abs() * box).sum(dim=1)
+            b = _row_term(tc) + _col_term(rc) - slack_pen + const
+            return torch.where(torch.isnan(b), -_BIG, b)
+
+        def _cert_qp_terms(tc, quad_min, r0):
+            rc = _rc_clamp(r0)
+            pen = ((r0 - rc).abs() * box).sum(dim=1)
+            b = _row_term(tc) + quad_min + _col_term(rc) - pen + sp.obj_const
+            return torch.where(torch.isnan(b), -_BIG, b)
+
+        def _cert_scale(tc, r, mat_mag):
+            rc = _rc_clamp(r)
+            slack_pen = ((r - rc).abs() * box).sum(dim=1)
+            return ((tc.abs() * abs_clb).sum(dim=1) +
+                    (tc.abs() * abs_cub).sum(dim=1) +
+                    (rc.abs() * box).sum(dim=1) + slack_pen + mat_mag)
+
+        def farkas_infeasible(y, margin):
+            """Certified infeasibility: min over the box of y.(Ax - s) > 0
+            (cert_bound_generic with cvec = 0, evaluated in f64)."""
+            tc = _cert_clamp_t(y)
+            r = -(tc @ A)
+            g0 = _cert_lp_terms(tc, r, 0.0)
+            mat_mag = (tc.abs() @ A.abs()).sum(dim=1)
+            return g0 > margin * (1.0 + _cert_scale(tc, r, mat_mag))
+
+        def farkas_sp(y):
+            """In-loop Farkas test via split-f32 products; every exit is
+            re-confirmed in f64 after the loop."""
+            tc = _cert_clamp_t(y)
+            r = -_spmv(A_sp, tc, trans=True)
+            rc = _rc_clamp(r)
+            slack_pen = ((r - rc).abs() * box).sum(dim=1)
+            g0 = _row_term(tc) + _col_term(rc) - slack_pen
+            g0 = torch.where(torch.isnan(g0), -_BIG, g0)
+            mat_mag = (tc.abs().to(F32) @ absA32).sum(dim=1).to(F64)
+            return g0 > 1e-5 * (1.0 + _cert_scale(tc, r, mat_mag))
+
+        def qp_cert_bound(y):
+            tc = _cert_clamp_t(y)
+            r = c_in - tc @ A
+            alpha = r @ q_eigV
+            quad_min = -0.25 * torch.where(
+                q_wpos, alpha * alpha / torch.clamp(q_eigw, min=1e-30),
+                0.0).sum(dim=1)
+            r0 = torch.where(q_wpos, 0.0, alpha) @ q_eigV.T
+            return _cert_qp_terms(tc, quad_min, r0)
+
+        def dual_cert_bound(y):
+            tc = _cert_clamp_t(y)
+            return _cert_lp_terms(tc, c_in - tc @ A, sp.obj_const)
+
+        if is_lp:
+            cert_f64 = dual_cert_bound
+
+            def cert_proxy(y):
+                tc = _cert_clamp_t(y)
+                r = c_in - _spmv(A_sp, tc, trans=True)
+                return _cert_lp_terms(tc, r, sp.obj_const)
+        elif q_psd:
+            cert_f64 = qp_cert_bound
+
+            def cert_proxy(y):
+                tc = _cert_clamp_t(y)
+                r = c_in - _spmv(A_sp, tc, trans=True)
+                alpha = _spmv(qV_sp, r, trans=True)
+                quad_min = -0.25 * torch.where(
+                    q_wpos, alpha * alpha / torch.clamp(q_eigw, min=1e-30),
+                    0.0).sum(dim=1)
+                r0 = _spmv(qV_sp, torch.where(q_wpos, 0.0, alpha))
+                return _cert_qp_terms(tc, quad_min, r0)
+        else:
+            cert_f64 = None
+            cert_proxy = None
+
+        def make_step(use_f32, sopts=opts, ratchet=True):
+            """One IPM iteration on every lane (see the JAX make_step).
+            `use_f32` picks the factor dtype; the iteration arithmetic is
+            f64 (the light f32 phase is not ported)."""
+            fdt = F32 if use_f32 else F64
+            adt = fdt if sopts.light_assembly else F64
+            A_a = A32 if adt == F32 else A
+            Qsym_a = (Qsym32 if adt == F32 else Qsym) if has_q else None
+
+            def step(state):
+                (z, y, zl, zu, k, err, mu_prev, best_db, best_y, rvec, nu,
+                 stall, bz, by, bzl, bzu, berr, bmu) = state
+                dl, du = distances(z)
+                rd_x, rd_s, rp = rvec[:, :n], rvec[:, n:n + m], rvec[:, n + m:]
+                comp = torch.where(fin_l, dl * zl, 0.0).sum(dim=1) + \
+                    torch.where(fin_u, du * zu, 0.0).sum(dim=1)
+                mu = comp / nb
+
+                Dz = torch.where(fin_l, zl / dl, 0.0) + \
+                    torch.where(fin_u, zu / du, 0.0)
+                Dz = torch.where(fixed, PIN, Dz)
+                Dx_diag = torch.where(fixed_x, 1.0, Dz[:, :n] + sopts.reg_primal)
+                Ds = Dz[:, n:] + sopts.reg_dual
+
+                if condense_x:
+                    # x-space normal equations over inequality rows plus
+                    # an explicit Schur block for equality rows; fixed
+                    # variables eliminated through the factored mask
+                    ineq_w = torch.where(eq_mask, 0.0, Ds) if m_eq else Ds
+                    mxa = mx64.to(adt)
+                    w_a = ineq_w.to(adt)
+                    gram = torch.matmul(A_a.T * w_a[:, None, :], A_a)
+                    core = gram if is_lp else gram + Qsym_a
+                    Mx = core * (mxa[:, :, None] * mxa[:, None, :]) + \
+                        torch.diag_embed(Dx_diag.to(adt))
+                    solve_mx, _ = _make_spd_solver(Mx, sopts, use_f32,
+                                                   out_dtype=F64)
+                    if m_eq:
+                        Ae = A[eq_rows]
+                        MeJ = solve_mx(mx64[:, :, None] * Ae.T[None])
+                        S = torch.matmul(Ae, mx64[:, :, None] * MeJ) + \
+                            1e-10 * torch.eye(m_eq, dtype=F64, device=dev)
+                        solve_s, _ = _make_spd_solver(S, sopts, use_f32,
+                                                      out_dtype=F64)
+
+                    def raw_xyz(rhs1, rhs2, rhs3):
+                        rx = rhs1 + mx64 * ((ineq_w * rhs3 + rhs2) @ A)
+                        rx = torch.where(fixed_x, 0.0, rx)
+                        if m_eq:
+                            t = solve_mx(rx)
+                            dy_eq = solve_s((mx64 * t) @ Ae.T -
+                                            rhs3[:, eq_rows])
+                            dx = t - torch.matmul(MeJ, dy_eq[:, :, None])[:, :, 0]
+                        else:
+                            dx = solve_mx(rx)
+                        dx = torch.where(fixed_x, 0.0, dx)
+                        ds = dx @ A.T - rhs3
+                        dy = Ds * ds - rhs2
+                        if m_eq:
+                            # equality slacks do not move; their
+                            # multipliers come from the Schur block
+                            ds = torch.where(eq_mask, 0.0, ds)
+                            dy = dy.index_copy(1, eq_rows, dy_eq)
+                        return dx, ds, dy
+
+                    def corr_resid(dxc, dsc, dyc):
+                        wdx = Dx_diag * dxc
+                        if not is_lp:
+                            wdx = wdx + mx64 * ((mx64 * dxc) @ Qsym)
+                        jt = mx64 * (dyc @ A)
+                        jdx = dxc @ A.T
+                        return wdx + jt, Ds * dsc - dyc, jdx - dsc
+
+                    def solve_xyz(rhs1, rhs2, rhs3, rounds):
+                        dx, ds, dy = raw_xyz(rhs1, rhs2, rhs3)
+                        if use_f32:
+                            for _ in range(rounds):
+                                r1, r2, r3 = corr_resid(dx, ds, dy)
+                                e1 = torch.where(fixed_x, 0.0, rhs1 - r1)
+                                e2 = rhs2 - r2
+                                e3 = rhs3 - r3
+                                if m_eq:
+                                    e2 = torch.where(eq_mask, 0.0, e2)
+                                cx, cs, cy = raw_xyz(e1, e2, e3)
+                                dx, ds, dy = dx + cx, ds + cs, dy + cy
+                        return dx, ds, dy
+                else:
+                    # m-space normal equations for skinny LPs:
+                    # M = A H^-1 A' + Ds^-1 (m x m)
+                    Hinv = torch.where(fixed_x, 0.0, 1.0 / Dx_diag)
+                    Ha = Hinv.to(adt)
+                    Mf = torch.matmul(A_a * Ha[:, None, :], A_a.T) + \
+                        torch.diag_embed((1.0 / Ds).to(adt))
+                    solve_m, _ = _make_spd_solver(Mf, sopts, use_f32,
+                                                  out_dtype=F64)
+
+                    def raw_m(rhs1, rhs2, rhs3):
+                        rhs_y = (Hinv * rhs1) @ A.T - rhs3 - rhs2 / Ds
+                        dy = solve_m(rhs_y)
+                        dx = Hinv * (rhs1 - dy @ A)
+                        ds = (dy + rhs2) / Ds
+                        return dx, ds, dy
+
+                    def solve_xyz(rhs1, rhs2, rhs3, rounds):
+                        dx, ds, dy = raw_m(rhs1, rhs2, rhs3)
+                        if use_f32:
+                            for _ in range(rounds):
+                                jt = dy @ A
+                                jdx = dx @ A.T
+                                e1 = torch.where(
+                                    fixed_x, 0.0, rhs1 - (Dx_diag * dx + jt))
+                                e2 = rhs2 - (Ds * ds - dy)
+                                e3 = rhs3 - (jdx - ds)
+                                cx, cs, cy = raw_m(e1, e2, e3)
+                                dx, ds, dy = dx + cx, ds + cs, dy + cy
+                        return dx, ds, dy
+
+                def solve_dirs(sig_mu, dcl, dcu, rounds):
+                    rc_l = torch.where(fin_l, sig_mu - dl * zl - dcl, 0.0)
+                    rc_u = torch.where(fin_u, sig_mu - du * zu - dcu, 0.0)
+                    t_l = torch.where(fin_l, rc_l / dl, 0.0)
+                    t_u = torch.where(fin_u, rc_u / du, 0.0)
+                    rhs1 = t_l[:, :n] - t_u[:, :n] - rd_x
+                    rhs2 = t_l[:, n:] - t_u[:, n:] - rd_s
+                    dx, ds, dy = solve_xyz(rhs1, rhs2, -rp, rounds)
+                    dz = torch.cat([dx, ds], dim=1)
+                    dzl = torch.where(fin_l, (rc_l - zl * dz) / dl, 0.0)
+                    dzu = torch.where(fin_u, (rc_u + zu * dz) / du, 0.0)
+                    return dz, dy, dzl, dzu
+
+                # predictor (affine)
+                aff_rounds = sopts.kkt_rounds \
+                    if sopts.affine_kkt_rounds is None \
+                    else min(sopts.affine_kkt_rounds, sopts.kkt_rounds)
+                dz_a, dy_a, dzl_a, dzu_a = solve_dirs(0.0, 0.0, 0.0,
+                                                      aff_rounds)
+                ap = torch.minimum(_max_step(dl, dz_a, 1.0, fin_l),
+                                   _max_step(du, -dz_a, 1.0, fin_u))
+                ad = torch.minimum(_max_step(zl, dzl_a, 1.0, fin_l),
+                                   _max_step(zu, dzu_a, 1.0, fin_u))
+                dl_a = dl + ap[:, None] * dz_a
+                du_a = du - ap[:, None] * dz_a
+                mu_aff = (torch.where(fin_l, dl_a * (zl + ad[:, None] * dzl_a),
+                                      0.0).sum(dim=1) +
+                          torch.where(fin_u, du_a * (zu + ad[:, None] * dzu_a),
+                                      0.0).sum(dim=1)) / nb
+                sigma = torch.clamp(
+                    (mu_aff / torch.clamp(mu, min=1e-300)) ** sopts.sigma_pow,
+                    0.0, 1.0)
+
+                # corrector
+                dz_c, dy_c, dzl_c, dzu_c = solve_dirs(
+                    (sigma * mu)[:, None], dz_a * dzl_a, -dz_a * dzu_a,
+                    sopts.kkt_rounds)
+
+                ap = torch.minimum(_max_step(dl, dz_c, sopts.tau, fin_l),
+                                   _max_step(du, -dz_c, sopts.tau, fin_u))
+                ad = torch.minimum(_max_step(zl, dzl_c, sopts.tau, fin_l),
+                                   _max_step(zu, dzu_c, sopts.tau, fin_u))
+                nu_pen = torch.maximum(nu, 10.0 * (1.0 + _amax0(y.abs())))
+
+                # full step (the LP/QP path has no line search)
+                z_new = z + ap[:, None] * dz_c
+                y_new = y + ad[:, None] * dy_c
+                zl_new = torch.where(
+                    fin_l, torch.clamp(zl + ad[:, None] * dzl_c, min=1e-300), 0.0)
+                zu_new = torch.where(
+                    fin_u, torch.clamp(zu + ad[:, None] * dzu_c, min=1e-300), 0.0)
+                rd_xt, rd_st, rpt = residuals(z_new, y_new, zl_new, zu_new)
+                err2, mu2 = kkt_error(z_new, y_new, zl_new, zu_new,
+                                      rd_xt, rd_st, rpt)
+                rvec2 = torch.cat([rd_xt, rd_st, rpt], dim=1)
+
+                # NaN guard: keep the previous iterate and stop (err -1)
+                ok = torch.isfinite(err2) & torch.isfinite(z_new).all(dim=1)
+                z_new = _sel(ok, z_new, z)
+                y_new = _sel(ok, y_new, y)
+                zl_new = _sel(ok, zl_new, zl)
+                zu_new = _sel(ok, zu_new, zu)
+                err2 = torch.where(ok, err2, -1.0)
+                mu2 = torch.where(ok, mu2, mu_prev)
+                rvec2 = _sel(ok, rvec2, rvec)
+
+                if ratchet and cert_proxy is not None:
+                    # split-f32 SELECTION of the best dual candidate; the
+                    # sound bound is re-evaluated in f64 after the loop
+                    db_new = cert_proxy(y_new)
+                    db_bet = db_new > best_db
+                    best_db = torch.where(db_bet, db_new, best_db)
+                    best_y = _sel(db_bet, y_new, best_y)
+                # certified Farkas exit (err = -2 sentinel), confirmed in
+                # f64 after the loop
+                err2 = torch.where(farkas_sp(y_new), -2.0, err2)
+                # best-state ratchet
+                better = (err2 >= 0.0) & (err2 < berr)
+                bz2, by2 = _sel(better, z_new, bz), _sel(better, y_new, by)
+                bzl2, bzu2 = _sel(better, zl_new, bzl), _sel(better, zu_new, bzu)
+                berr2 = torch.where(better, err2, berr)
+                bmu2 = torch.where(better, mu2, bmu)
+                nu2 = torch.maximum(nu_pen, torch.clamp(
+                    10.0 * (1.0 + _amax0(y_new.abs())), max=1e10))
+                stall2 = torch.where(better, torch.zeros_like(stall), stall + 1)
+                return (z_new, y_new, zl_new, zu_new, k + 1, err2, mu2,
+                        best_db, best_y, rvec2, nu2, stall2,
+                        bz2, by2, bzl2, bzu2, berr2, bmu2)
+            return step
+
+        def _while(cond, step, state):
+            # batched while_loop: lanes whose condition is false keep
+            # their whole state (vmap-of-while_loop semantics)
+            while True:
+                active = cond(state)
+                if not bool(active.any()):
+                    return state
+                state = _sel_state(active, step(state), state)
+
+        def cond_to(tol_target, k_cap):
+            def cond(state):
+                k, err, berr = state[4], state[5], state[-2]
+                return (k < k_cap) & (berr > tol_target) & (err >= 0.0)
+            return cond
+
+        eff_tol = (max(opts.tol, opts.tail_tol)
+                   if (opts.factor_f32 and opts.tail_factor_f32)
+                   else opts.tol)
+
+        rd_x0, rd_s0, rp0 = residuals(z0, y0, zl0, zu0)
+        err0, mu0 = kkt_error(z0, y0, zl0, zu0, rd_x0, rd_s0, rp0)
+        rvec0 = torch.cat([rd_x0, rd_s0, rp0], dim=1)
+        ik = torch.zeros(B, dtype=torch.long, device=dev)
+        full = lambda v: torch.full((B,), v, dtype=F64, device=dev)  # noqa: E731
+        state0 = (z0, y0, zl0, zu0, ik, err0, mu0, full(-_BIG), y0, rvec0,
+                  full(10.0), ik.clone(), z0, y0, zl0, zu0, err0, mu0)
+        if opts.factor_f32:
+            # two-phase: f32-factorized iterations until moderately
+            # converged, then the tail with its own budget
+            switch_tol = max(opts.tol, 1e-4)
+            cap1 = max(1, opts.max_iters // 2)
+            state1 = _while(cond_to(switch_tol, cap1),
+                            make_step(True, ratchet=False), state0)
+            (z1, y1, zl1, zu1, k1, err1, mu1, bdb1, bY1, _rv1, nu1, st1,
+             bz1, by1, bzl1, bzu1, berr1, bmu1) = state1
+            # hand the tail the BEST phase-1 iterate
+            use_b = (err1 == -1.0) | ((err1 >= 0.0) & (berr1 < err1))
+            zm, ym = _sel(use_b, bz1, z1), _sel(use_b, by1, y1)
+            zlm, zum = _sel(use_b, bzl1, zl1), _sel(use_b, bzu1, zu1)
+            rxm, rsm, rpm = residuals(zm, ym, zlm, zum)
+            rvm = torch.cat([rxm, rsm, rpm], dim=1)
+            state1 = (zm, ym, zlm, zum, k1, torch.where(use_b, berr1, err1),
+                      torch.where(use_b, bmu1, mu1), bdb1, bY1, rvm, nu1, st1,
+                      bz1, by1, bzl1, bzu1, berr1, bmu1)
+            if opts.tail_factor_f32:
+                tail_step = make_step(True, dataclasses.replace(
+                    opts, kkt_rounds=opts.tail_kkt_rounds))
+            else:
+                tail_step = make_step(False)
+            state2 = _while(cond_to(opts.tol, cap1 + opts.max_iters),
+                            tail_step, state1)
+            polish_step = tail_step
+        else:
+            polish_step = make_step(False)
+            state2 = _while(cond_to(opts.tol, opts.max_iters),
+                            make_step(False), state0)
+        if cert_f64 is not None:
+            # one extra ratcheted step shrinks the dual residual (and the
+            # certificate gap); sentinel lanes keep their exited state
+            state3 = polish_step(state2)
+            keep2 = state2[5] < 0.0
+            state2 = _sel_state(keep2, state2, state3)
+        (z, y, zl, zu, iters, err, mu, best_db, best_y, _rvf, _nuf, _stf,
+         bz, by, bzl, bzu, berr, bmu) = state2
+        # report the best iterate seen, not the last
+        take_b = (err == -1.0) | ((err >= 0.0) & (berr < err))
+        z, y = _sel(take_b, bz, z), _sel(take_b, by, y)
+        zl, zu = _sel(take_b, bzl, zl), _sel(take_b, bzu, zu)
+        err, mu = torch.where(take_b, berr, err), torch.where(take_b, bmu, mu)
+
+        x = z[:, :n]
+        obj = f_obj(x, c_in) + sp.obj_const
+
+        # ---- final f64 recomputation --------------------------------------
+        rd_xf, rd_sf, rpf = residuals(z, y, zl, zu)
+        err_f, mu_f = kkt_error(z, y, zl, zu, rd_xf, rd_sf, rpf)
+        sent = err < 0.0
+        err = torch.where(sent, err, err_f)
+        mu = torch.where(sent, mu, mu_f)
+
+        # ---- certified dual bound (exact for LP/PSD-QP) -------------------
+        trust = torch.where((err <= eff_tol * 100) & (err >= 0.0),
+                            obj - torch.clamp(10.0 * err, min=1e-7) *
+                            (1.0 + obj.abs()), -_BIG)
+        if is_lp:
+            cert_db = torch.maximum(dual_cert_bound(best_y), dual_cert_bound(y))
+            dual_bound = cert_db
+        elif q_psd:
+            cert_db = torch.maximum(qp_cert_bound(best_y), qp_cert_bound(y))
+            dual_bound = torch.maximum(cert_db, trust)
+        else:
+            cert_db = full(-_BIG)
+            dual_bound = trust
+
+        prim_err = _amax0(rpf.abs())
+        empty_box = (lz > uz + 1e-12).any(dim=1)
+        farkas = (err == -2.0) & farkas_infeasible(y, 1e-5)
+        converged = (err <= eff_tol) & (err >= 0.0) & ~empty_box
+        gap_closed = cert_db >= obj - eff_tol * (1.0 + obj.abs())
+        cert_opt = gap_closed & (prim_err <= 1e-6) & (err >= 0.0) & ~empty_box
+        converged = converged | cert_opt
+        # LP/QP: infeasibility claims REQUIRE the Farkas certificate
+        heur_infeas = dual_bound > 1e15
+        infeasible = empty_box | farkas | heur_infeas
+        dual_bound = torch.where(empty_box | farkas, _BIG, dual_bound)
+        status = torch.where(
+            converged, int(EngineStatus.SOLVED_OPTIMAL),
+            torch.where(infeasible, int(EngineStatus.SOLVED_INFEASIBLE),
+                        int(EngineStatus.ITERATION_LIMIT))).to(torch.int32)
+        return IPMResult(x=x, obj=obj, dual_bound=dual_bound, y=y,
+                         status=status, iters=iters, kkt_err=err)
+
+    def with_objective(A, clb, cub, vlb, vub, x0, c_in, y0=None):
+        return solve_impl(A, clb, cub, vlb, vub, x0, c_in, y0)
+
+    def solve_one(A, clb, cub, vlb, vub, x0, y0=None):
+        return solve_impl(A, clb, cub, vlb, vub, x0, c_const, y0)
+
+    solve_one.with_objective = with_objective
+    solve_one.device = dev
+    return solve_one
+
+
+def to_device(a, device) -> torch.Tensor:
+    """float64 tensor on `device` from numpy or torch input."""
+    return torch.as_tensor(a, dtype=F64, device=device)
+
+
+def build_batch_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
+                       device="cuda") -> Callable:
+    """Returns solve(A, clb, cub, vlb_b, vub_b, x0_b=None) -> IPMResult
+    with numpy fields, plus `solve.dispatch` (returns the packed
+    (B, n+m+5) float64 device tensor) and `solve.unpack` (one
+    device-to-host copy), in the JAX package's packed layout."""
+    n, m = sp.n, sp.m
+    solve_one = build_single_solver(sp, opts, device)
+    dev = solve_one.device
+
+    def dispatch(A, clb, cub, vlb_b, vub_b, x0_b=None):
+        vlb_b = to_device(vlb_b, dev)
+        if x0_b is None:
+            x0_b = torch.zeros((vlb_b.shape[0], n), dtype=F64, device=dev)
+        r = solve_one(to_device(A, dev).reshape(m, n), to_device(clb, dev),
+                      to_device(cub, dev), vlb_b, to_device(vub_b, dev),
+                      to_device(x0_b, dev))
+        # certified bounds are never downcast: the packed layout is f64
+        if r.x.dtype != F64 or r.dual_bound.dtype != F64:
+            raise TypeError("build_batch_solver: packed result must be "
+                            "float64 (certified bounds are never downcast)")
+        return torch.cat(
+            [r.x, r.y, r.obj[:, None], r.dual_bound[:, None],
+             r.status[:, None].to(F64), r.iters[:, None].to(F64),
+             r.kkt_err[:, None]], dim=1)
+
+    def _unpack(arr) -> IPMResult:
+        if isinstance(arr, torch.Tensor):
+            arr = arr.cpu().numpy()
+        arr = np.asarray(arr)
+        return IPMResult(
+            x=arr[:, :n], y=arr[:, n:n + m],
+            obj=arr[:, n + m], dual_bound=arr[:, n + m + 1],
+            status=arr[:, n + m + 2].astype(np.int32),
+            iters=arr[:, n + m + 3].astype(np.int32),
+            kkt_err=arr[:, n + m + 4])
+
+    def solve(A, clb, cub, vlb_b, vub_b, x0_b=None):
+        return _unpack(dispatch(A, clb, cub, vlb_b, vub_b, x0_b))
+
+    solve.dispatch = dispatch
+    solve.unpack = _unpack
+    return solve

@@ -1,0 +1,146 @@
+"""Where the time of the main path goes on one CUDA card.
+
+Runs `BranchAndBound` on intquad(300, 4, 0) at the bench settings
+(node_batch 64, pad_full 1, ipm_max_iters 28, ipm_tail_kkt_rounds 4,
+ipm_refine_steps 0, ipm_chol_retry 0) and prints one JSON object:
+
+- `runs`: the same capped search through the kernels and through their
+  plain PyTorch versions, in the order kernel, plain, plain, kernel (so
+  drift of the card or the host shows as spread), then once through the
+  kernels under `dtype f64`.  Each run: status, nodes, seconds, nodes/s,
+  IPM iterations (summed over lanes), KKT factorizations/s, lb, ub.
+- `profile`: a shorter kernel run under torch.profiler: wall seconds,
+  the union of device kernel intervals (device busy share under the
+  profiler, which slows the host), and the top device kernels by time.
+
+Usage: python -m minotaur_tpu_torch.tools.profile_bnb [--out FILE]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import time
+
+BENCH_OPTIONS = (("node_batch", 64), ("pad_full", 1), ("ipm_max_iters", 28),
+                 ("ipm_tail_kkt_rounds", 4), ("ipm_refine_steps", 0),
+                 ("ipm_chol_retry", 0), ("bnb_time_limit", 600.0),
+                 ("log_level", 1))
+TIMED_NODES = 4096          # node cap of the timed runs
+PROFILED_NODES = 640        # node cap of the profiled run (the profiler
+                            # slows the host several-fold)
+TOP = 12                    # device kernels listed
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the IPM through the kernels' plain versions (comparison runs
+    only; the main path never takes this route)."""
+    from minotaur_tpu_torch.engines import ipm
+    from minotaur_tpu_torch.ops.spd_inverse import spd_inverse_plain
+    from minotaur_tpu_torch.ops.spd_solve import spd_solve_plain
+    saved = ipm.spd_inverse, ipm.spd_solve
+    ipm.spd_inverse = spd_inverse_plain
+    ipm.spd_solve = spd_solve_plain
+    try:
+        yield
+    finally:
+        ipm.spd_inverse, ipm.spd_solve = saved
+
+
+def solve_intquad300(nodes: int, dtype: str = "mixed", n: int = 300,
+                     device: str = "cuda") -> dict:
+    """One capped B&B search; returns its end-to-end numbers."""
+    from minotaur_tpu_torch.bnb.bnb import BranchAndBound
+    from minotaur_tpu_torch.models.convex_suite2 import intquad
+    from minotaur_tpu_torch.utils.environment import Environment
+    env = Environment()
+    for k, v in BENCH_OPTIONS + (("bnb_node_limit", nodes), ("dtype", dtype)):
+        env.set_option(k, v)
+    bab = BranchAndBound(intquad(n, 4, 0), env, device=device)
+    t0 = time.monotonic()
+    st = bab.solve()
+    dt = time.monotonic() - t0
+    s = bab.stats
+    return dict(status=st.name, nodes=s.nodes_processed, s=dt,
+                nodes_per_s=s.nodes_processed / dt, ipm_iters=s.ipm_iters,
+                kkt_fact_per_s=s.ipm_iters / dt, batches=s.batches,
+                lb=float(bab.lb), ub=float(bab.ub))
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def profile_run(nodes: int) -> dict:
+    """A kernel-path run under torch.profiler: device busy share and the
+    top device kernels by total time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from minotaur_tpu_torch import device as mdev
+    mdev.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run = solve_intquad300(nodes)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_s = _union_us((e.time_range.start, e.time_range.end)
+                       for e in kern) / 1e6
+    by_name = {}
+    for e in kern:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    total = sum(t for t, _ in by_name.values())
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    return dict(run=run, wall_s=wall, device_kernels=len(kern),
+                device_busy_s=busy_s,
+                device_busy_share=busy_s / wall if kern else None,
+                kernel_time_s=total / 1e6,
+                launches=mdev.launch_counts(),
+                top=[dict(name=name[:120], ms=t / 1e3, count=c,
+                          share=t / total) for name, (t, c) in rows])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_bnb: needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    solve_intquad300(64)                 # build the kernels, warm up
+    out = dict(card=card, nodes_cap=TIMED_NODES, runs=[])
+    for label in ("kernel", "plain", "plain", "kernel", "kernel_f64"):
+        ctx = plain_kernels() if label == "plain" else contextlib.nullcontext()
+        with ctx:
+            r = solve_intquad300(TIMED_NODES,
+                                 "f64" if label == "kernel_f64" else "mixed")
+        r["label"] = label
+        print(json.dumps(r), flush=True)
+        out["runs"].append(r)
+    out["profile"] = profile_run(PROFILED_NODES)
+    text = json.dumps(out, indent=1)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(text)
+    print(text, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
