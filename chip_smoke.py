@@ -47,8 +47,10 @@ def say(msg):
     print(msg, flush=True)
 
 
-def median_ms(fn, reps=20, warmup=3):
-    """Median of `reps` timings of fn() with CUDA events (after warm-up)."""
+def event_ms(fn, calls=20, reps=5, warmup=3):
+    """Milliseconds per call of fn(): CUDA events around `calls`
+    back-to-back calls, divided by `calls`, after warm-up; the median of
+    `reps` such windows."""
     import torch
     for _ in range(warmup):
         fn()
@@ -58,12 +60,43 @@ def median_ms(fn, reps=20, warmup=3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     times.sort()
     return times[len(times) // 2]
+
+
+# The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): HBM bytes/s
+# and the operation rate the bounds use for f32 (CUDA cores) and f64 (the
+# FP64 tensor-core rate, the card's highest for that type).
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 67e12}
+
+
+def bound(flops, nbytes, itemsize):
+    """(bound_ms, bound_by): the larger of operations over the peak rate
+    for the type and bytes over the memory rate."""
+    t_ops = flops / PEAK_FLOPS[itemsize]
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                        else "bytes")
+
+
+def k1_bound(B, k, itemsize):
+    """K1: potrf + trtri + lauum, k^3/3 flops each per lane; one read of
+    the lower triangle of ms (all the function needs) and one write of
+    Minv."""
+    return bound(B * k ** 3, B * (k * (k + 1) // 2 + k * k) * itemsize,
+                 itemsize)
+
+
+def k2_bound(B, k, itemsize):
+    """K2 at refine 0: one product with Minv (2 k^2 flops per lane); reads
+    Minv, dinv and r once and writes x (shift and M are not read)."""
+    return bound(2 * B * k * k, (B * k * k + 3 * B * k) * itemsize, itemsize)
 
 
 def spd_batch(rng, B, k, scale=2.0):
@@ -98,6 +131,23 @@ def phase_build():
         f"{time.monotonic() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
 
 
+def spoil(M, defect):
+    """Make lane 0 of M fail: "shift" (-6 I, at column 0), "late" (the
+    pivot of column 2*32+5, or of the last column, driven to -0.5, so the
+    failure comes after two panels of updates), "nan" (one NaN pair)."""
+    import numpy as np
+    k = M.shape[-1]
+    if defect == "shift":
+        M[0] -= 6.0 * np.eye(k)
+    elif defect == "late":
+        j = min(2 * 32 + 5, k - 1)
+        s = M[0, j, :j] @ np.linalg.solve(M[0, :j, :j], M[0, :j, j]) if j else 0.0
+        M[0, j, j] = s - 0.5
+    elif defect == "nan":
+        M[0, k // 2, k // 3] = M[0, k // 3, k // 2] = np.nan
+    return M
+
+
 def phase_k1(record):
     import numpy as np
     import torch
@@ -105,32 +155,39 @@ def phase_k1(record):
                                                     spd_inverse_plain)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    cases = [(3, 50, torch.float32), (4, 130, torch.float32),
-             (2, 300, torch.float32), (5, 1, torch.float32),
-             (64, 300, torch.float32), (64, 300, torch.float64)]
+    # ragged k (not a multiple of the panel width 32), B=1, failures at
+    # column 0, in a later panel and from a NaN, the bench shape, and
+    # k=900, whose f64 panel does not fit shared memory
+    cases = [(3, 50, "shift"), (4, 130, "shift"), (2, 300, "shift"),
+             (5, 1, "none"), (3, 31, "nan"), (3, 33, "late"),
+             (4, 65, "late"), (4, 129, "nan"), (4, 301, "late"),
+             (1, 300, "none"), (1, 1, "nan"), (2, 900, "late"),
+             (64, 300, "shift")]
     worst = {}
-    for B, k, dt in cases:
-        M = spd_batch(rng, B, k)
-        if B >= 4:
-            M[1] -= 6.0 * np.eye(k)             # one indefinite lane
-        ms = torch.as_tensor(M, dtype=dt, device=dev)
-        minv, flag = spd_inverse(ms)
-        pminv, pflag = spd_inverse_plain(ms)
-        torch.cuda.synchronize()
-        check(torch.equal(flag, pflag), f"K1 flags differ at {(B, k, dt)}")
-        ok = flag == 0
-        resid = (torch.eye(k, device=dev, dtype=torch.float64) -
-                 ms.double()[ok] @ minv.double()[ok]).abs().max().item()
-        err = (minv - pminv).abs().max().item()
-        scale = pminv.abs().max().item()
-        tol = 5e-5 if dt == torch.float32 else 1e-11
-        check(resid < tol, f"K1 residual {resid:.3g} at {(B, k, dt)}")
-        check(err <= tol * scale, f"K1 vs plain {err:.3g} at {(B, k, dt)}")
-        if B >= 4:
-            check(flag[1].item() == 2.0 and torch.equal(
-                minv[1], torch.eye(k, dtype=dt, device=dev)),
-                "K1 indefinite lane not flagged")
-        worst[(B, k, str(dt))] = (err, resid)
+    for B, k, defect in cases:
+        base = spoil(spd_batch(rng, B, k), defect)
+        for dt in (torch.float32, torch.float64):
+            ms = torch.as_tensor(base, dtype=dt, device=dev)
+            minv, flag = spd_inverse(ms)
+            pminv, pflag = spd_inverse_plain(ms)
+            torch.cuda.synchronize()
+            what = (B, k, defect, str(dt))
+            check(torch.equal(flag, pflag), f"K1 flags differ at {what}")
+            check(flag[0].item() == (0.0 if defect == "none" else 2.0),
+                  f"K1 lane 0 flag {flag[0].item()} at {what}")
+            ok = flag == 0
+            tol = 5e-5 if dt == torch.float32 else 1e-11
+            resid = (torch.eye(k, device=dev, dtype=torch.float64) -
+                     ms.double()[ok] @ minv.double()[ok]).abs().max().item() \
+                if bool(ok.any()) else 0.0
+            err = (minv - pminv).abs().max().item()
+            scale = pminv.abs().max().item()
+            check(resid < tol, f"K1 residual {resid:.3g} at {what}")
+            check(err <= tol * scale, f"K1 vs plain {err:.3g} at {what}")
+            if defect != "none":
+                check(torch.equal(minv[0], torch.eye(k, dtype=dt, device=dev)),
+                      f"K1 failed lane is not the identity at {what}")
+            worst[(B, k, str(dt))] = err
     # the spec's ill-conditioned Jacobi-scaled case
     k = 200
     M = spd_batch(rng, 2, k, 1.0)
@@ -143,23 +200,34 @@ def phase_k1(record):
              ms.double() @ minv.double()).abs().max().item()
     check(bool((flag == 0).all()) and resid < 1e-2,
           f"K1 ill-conditioned residual {resid:.3g}")
-    # times at the bench shape (f32 main path, and the f64 instantiation)
+    # times at the bench shape (f32 main path, and the f64 instantiation):
+    # the kernel, its plain version, and torch.linalg.inv_ex (the one
+    # PyTorch call computing the same inverse; the port never calls it)
+    B, k = 64, 300
     times = {}
     for dt in (torch.float32, torch.float64):
-        ms = torch.as_tensor(spd_batch(rng, 64, 300), dtype=dt, device=dev)
-        times[dt] = (median_ms(lambda: spd_inverse(ms)),
-                     median_ms(lambda: spd_inverse_plain(ms)))
-    e32 = worst[(64, 300, str(torch.float32))][0]
-    say(f"[3] K1 spd_inverse ok: max|kernel-plain| (64,300,300) f32 "
-        f"{e32:.3g}, f64 {worst[(64, 300, str(torch.float64))][0]:.3g}; "
-        f"ill-cond resid {resid:.3g}; median ms f32 kernel "
-        f"{times[torch.float32][0]:.4f} plain {times[torch.float32][1]:.4f}"
-        f"; f64 kernel {times[torch.float64][0]:.4f} plain "
-        f"{times[torch.float64][1]:.4f}")
+        ms = torch.as_tensor(spd_batch(rng, B, k), dtype=dt, device=dev)
+        times[dt] = dict(
+            ms=event_ms(lambda: spd_inverse(ms)),
+            plain_ms=event_ms(lambda: spd_inverse_plain(ms)),
+            library_ms=event_ms(lambda: torch.linalg.inv_ex(ms)))
+        times[dt]["bound_ms"], times[dt]["bound_by"] = k1_bound(
+            B, k, ms.element_size())
+    t32, t64 = times[torch.float32], times[torch.float64]
+    say(f"[3] K1 spd_inverse ok on {len(cases)} cases x f32/f64 (flags equal "
+        f"to plain, incl. ragged k, late-panel and NaN failures): "
+        f"max|kernel-plain| (64,300,300) f32 "
+        f"{worst[(64, 300, str(torch.float32))]:.3g}, f64 "
+        f"{worst[(64, 300, str(torch.float64))]:.3g}; ill-cond resid "
+        f"{resid:.3g}; ms per call (20 back-to-back, median of 5) f32 kernel "
+        f"{t32['ms']:.4f} plain {t32['plain_ms']:.4f} inv_ex "
+        f"{t32['library_ms']:.4f} bound {t32['bound_ms']:.4f} "
+        f"({t32['bound_by']}); f64 kernel {t64['ms']:.4f} plain "
+        f"{t64['plain_ms']:.4f} inv_ex {t64['library_ms']:.4f} bound "
+        f"{t64['bound_ms']:.4f} ({t64['bound_by']})")
     record["spd_inverse"] = dict(
-        max_abs_err=e32, ms=times[torch.float32][0],
-        plain_ms=times[torch.float32][1], f64_ms=times[torch.float64][0],
-        f64_plain_ms=times[torch.float64][1])
+        max_abs_err=worst[(64, 300, str(torch.float32))], **t32,
+        **{"f64_" + key: v for key, v in t64.items() if key != "bound_by"})
 
 
 def phase_k2(record):
@@ -214,15 +282,18 @@ def phase_k2(record):
     sh = torch.zeros((B, k), dtype=torch.float32, device=dev)
     r = torch.as_tensor(rng.standard_normal((B, k)), dtype=torch.float32,
                         device=dev)
-    t_k = median_ms(lambda: spd_solve(minv32, mop, dv, sh, r, 0))
-    t_p = median_ms(lambda: spd_solve_plain(minv32, mop, dv, sh, r, 0))
-    t_k2 = median_ms(lambda: spd_solve(minv32, mop, dv, sh, r, 2))
-    t_p2 = median_ms(lambda: spd_solve_plain(minv32, mop, dv, sh, r, 2))
+    t_k = event_ms(lambda: spd_solve(minv32, mop, dv, sh, r, 0))
+    t_p = event_ms(lambda: spd_solve_plain(minv32, mop, dv, sh, r, 0))
+    t_k2 = event_ms(lambda: spd_solve(minv32, mop, dv, sh, r, 2))
+    t_p2 = event_ms(lambda: spd_solve_plain(minv32, mop, dv, sh, r, 2))
+    b_ms, b_by = k2_bound(B, k, minv32.element_size())
     say(f"[4] K2 spd_solve ok: max|kernel-plain| {worst:.3g} over "
-        f"refine {{0,2}} x R {{1,8}} x 3 dtype pairs; median ms (64,300) "
-        f"f32 refine 0: kernel {t_k:.4f} plain {t_p:.4f}; refine 2: kernel "
-        f"{t_k2:.4f} plain {t_p2:.4f}")
+        f"refine {{0,2}} x R {{1,8}} x 3 dtype pairs; ms per call (64,300) "
+        f"f32 refine 0: kernel {t_k:.4f} plain {t_p:.4f} bound {b_ms:.4f} "
+        f"({b_by}); refine 2: kernel {t_k2:.4f} plain {t_p2:.4f}")
+    # no single PyTorch call computes the scaled, refined solve
     record["spd_solve"] = dict(max_abs_err=main_err, ms=t_k, plain_ms=t_p,
+                               bound_ms=b_ms, bound_by=b_by, library_ms=None,
                                refine2_ms=t_k2, refine2_plain_ms=t_p2)
 
 
@@ -366,11 +437,14 @@ def main() -> int:
              "minotaur_tpu/ops/pallas_kkt.py:204"),
             ("spd_solve", "minotaur_tpu_torch/csrc/spd_solve.cu",
              "minotaur_tpu/ops/pallas_kernels.py:76")):
-        r = record[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": int(launches[name]),
-                        "max_abs_err": float(r["max_abs_err"]),
-                        "ms": float(r["ms"]), "plain_ms": float(r["plain_ms"])})
+        r = dict(record[name])
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": rep, "launches": int(launches[name])}
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"):
+            row[key] = r.pop(key)
+        row.update(r)                   # the f64 and refine-2 extras
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,9 +92,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"mt_spd_inverse_{suffix}")
-        # (ms, out, L, Linv, flag, B, k, stream)
-        fn.argtypes = [p, p, p, p, p, i, i, p]
+        # (ms, out, xbuf, wbuf, fail, flag, B, k, stream)
+        fn.argtypes = [p] * 6 + [i, i, p]
         fn.restype = i
+    # (k, itemsize) -> elements per lane of the global panel buffer
+    lib.mt_spd_inverse_wbuf_elems.argtypes = [i, i]
+    lib.mt_spd_inverse_wbuf_elems.restype = ctypes.c_longlong
     for suffix in ("f32_f32", "f32_f64", "f64_f64"):
         fn = getattr(lib, f"mt_spd_solve_{suffix}")
         # (minv, m_op, dinv, shift, r, x, res, x2, res2, u,

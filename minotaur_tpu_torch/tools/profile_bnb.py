@@ -11,7 +11,12 @@ ipm_refine_steps 0, ipm_chol_retry 0) and prints one JSON object:
   IPM iterations (summed over lanes), KKT factorizations/s, lb, ub.
 - `profile`: a shorter kernel run under torch.profiler: wall seconds,
   the union of device kernel intervals (device busy share under the
-  profiler, which slows the host), and the top device kernels by time.
+  profiler, which slows the host), the top device kernels by time, each
+  port kernel's share of kernel time with its device launches beside the
+  wrapper's count (K1 is three device kernels per wrapper call), and the
+  host's seconds blocked in CUDA synchronisation calls (what is left of
+  the wall is the host's own work, during which the device runs queued
+  kernels).
 
 Usage: python -m minotaur_tpu_torch.tools.profile_bnb [--out FILE]
 """
@@ -32,6 +37,9 @@ TIMED_NODES = 4096          # node cap of the timed runs
 PROFILED_NODES = 640        # node cap of the profiled run (the profiler
                             # slows the host several-fold)
 TOP = 12                    # device kernels listed
+# CUDA runtime calls in which the host waits for the device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
 
 
 @contextlib.contextmanager
@@ -94,7 +102,8 @@ def profile_run(nodes: int) -> dict:
         run = solve_intquad300(nodes)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_s = _union_us((e.time_range.start, e.time_range.end)
                        for e in kern) / 1e6
     by_name = {}
@@ -103,11 +112,23 @@ def profile_run(nodes: int) -> dict:
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     total = sum(t for t, _ in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    launches = mdev.launch_counts()
+    port = {}
+    for kname in launches:
+        mine = [(t, c, n) for n, (t, c) in by_name.items() if kname in n]
+        port[kname] = dict(
+            ms=sum(t for t, _, _ in mine) / 1e3,
+            share=sum(t for t, _, _ in mine) / total if total else None,
+            device_launches={n[:80]: c for _, c, n in mine},
+            wrapper_calls=launches[kname])
+    blocked_us = sum(e.time_range.elapsed_us() for e in events
+                     if e.device_type == DeviceType.CPU and e.name in SYNC_CALLS)
     return dict(run=run, wall_s=wall, device_kernels=len(kern),
                 device_busy_s=busy_s,
                 device_busy_share=busy_s / wall if kern else None,
                 kernel_time_s=total / 1e6,
-                launches=mdev.launch_counts(),
+                host_blocked_in_sync_s=blocked_us / 1e6,
+                launches=launches, port_kernels=port,
                 top=[dict(name=name[:120], ms=t / 1e3, count=c,
                           share=t / total) for name, (t, c) in rows])
 

@@ -33,12 +33,34 @@ def _spd(rng, B, k, scale=1.0):
         np.eye(k, dtype=np.float32)[None] * scale
 
 
+def spoil(M, defect):
+    """Make lane 0 of M fail: "shift" (-6 I, fails at column 0), "late"
+    (the diagonal entry of column 2*32+5, or the last one, set 0.5 below
+    its Schur complement term, so the pivot there is -0.5 and the failure
+    comes after two panels of updates), "nan" (one NaN pair), or "none"."""
+    k = M.shape[-1]
+    if defect == "shift":
+        M[0] -= 6.0 * np.eye(k, dtype=M.dtype)
+    elif defect == "late":
+        j = min(2 * 32 + 5, k - 1)
+        a = M[0].astype(np.float64)
+        s = a[j, :j] @ np.linalg.solve(a[:j, :j], a[:j, j]) if j else 0.0
+        M[0, j, j] = s - 0.5
+    elif defect == "nan":
+        M[0, k // 2, k // 3] = M[0, k // 3, k // 2] = np.nan
+    return M
+
+
+# ragged k (not a multiple of the panel width 32), B=1, the bench shape,
+# and k=900, whose f64 panel does not fit shared memory
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,k", [(3, 50), (4, 130), (2, 300), (5, 1),
-                                 (64, 300)])
-def test_spd_inverse_kernel_matches_plain(cuda, dtype, B, k):
-    M = _spd(np.random.default_rng(0), B, k, 2.0)
-    M[0] -= 6.0 * np.eye(k, dtype=np.float32) if k > 1 else 0.0
+@pytest.mark.parametrize("B,k,defect", [
+    (3, 50, "shift"), (4, 130, "shift"), (2, 300, "shift"), (5, 1, "none"),
+    (64, 300, "shift"), (3, 31, "nan"), (3, 33, "late"), (4, 65, "late"),
+    (4, 129, "nan"), (4, 301, "late"), (1, 300, "none"), (1, 1, "nan"),
+    (2, 900, "late")])
+def test_spd_inverse_kernel_matches_plain(cuda, dtype, B, k, defect):
+    M = spoil(_spd(np.random.default_rng(0), B, k, 2.0), defect)
     ms = torch.from_numpy(M).to(cuda, dtype)
     n0 = spd_inverse.launches
     minv, flag = spd_inverse(ms)
@@ -46,6 +68,7 @@ def test_spd_inverse_kernel_matches_plain(cuda, dtype, B, k):
     assert spd_inverse.launches == n0 + 1
     pminv, pflag = spd_inverse_plain(ms)
     assert torch.equal(flag, pflag)
+    assert flag[0].item() == (0.0 if defect == "none" else 2.0)
     tol = 5e-5 if dtype == torch.float32 else 1e-12
     scale = pminv.abs().max()
     assert (minv - pminv).abs().max() <= tol * scale
