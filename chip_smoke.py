@@ -69,6 +69,38 @@ def event_ms(fn, calls=20, reps=5, warmup=3):
     return times[len(times) // 2]
 
 
+def graph_ms(fn, calls=20, reps=5):
+    """Device milliseconds per call of fn(): `calls` calls captured in one
+    CUDA graph after warm-up, the graph replayed between CUDA events and
+    the time divided by `calls`; the median of `reps` replays.  No host
+    dispatch falls inside the window, so this is the device's time even
+    where the caller's Python takes longer than the kernel."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    times.sort()
+    return times[len(times) // 2]
+
+
 # The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): HBM bytes/s
 # and the operation rate the bounds use for f32 (CUDA cores) and f64 (the
 # FP64 tensor-core rate, the card's highest for that type).
@@ -93,10 +125,18 @@ def k1_bound(B, k, itemsize):
                  itemsize)
 
 
-def k2_bound(B, k, itemsize):
-    """K2 at refine 0: one product with Minv (2 k^2 flops per lane); reads
-    Minv, dinv and r once and writes x (shift and M are not read)."""
-    return bound(2 * B * k * k, (B * k * k + 3 * B * k) * itemsize, itemsize)
+def k2_bound(B, k, sf, sm=None, steps=0):
+    """K2 on (B, k) lanes with one right-hand side, factor and operator
+    element sizes sf and sm: 2 k^2 flops a product, one product at refine
+    0, and with refinement 2 + 2 steps (the first solve and residual, then
+    a solve and a residual a round); reads Minv once, M once when refining
+    (one pass each is all the function needs), dinv, r (and shift when
+    refining) once, and writes x once."""
+    sm = sm or sf
+    prods = 1 if steps == 0 else 2 + 2 * steps
+    nbytes = B * k * k * sf + (B * k * k * sm if steps else 0) + \
+        B * k * sm * (2 if steps else 1) + 2 * B * k * sm
+    return bound(2 * B * k * k * prods, nbytes, max(sf, sm))
 
 
 def spd_batch(rng, B, k, scale=2.0):
@@ -230,71 +270,124 @@ def phase_k1(record):
         **{"f64_" + key: v for key, v in t64.items() if key != "bound_by"})
 
 
-def phase_k2(record):
-    import numpy as np
+def k2_inputs(dev, B, k, seed):
+    """(M, dinv, shift, Minv_s f32, Minv_s f64) for B SPD lanes of order k
+    (A A' + k I, Jacobi-scaled), float64 on the card, from a seed."""
     import torch
-    from minotaur_tpu_torch.ops.spd_inverse import spd_inverse
+    from minotaur_tpu_torch.ops.spd_inverse import spd_inverse_plain
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    A = torch.randn((B, k, k), generator=g, **f64)
+    M = A @ A.transpose(1, 2) + k * torch.eye(k, **f64)
+    dinv = 1.0 / torch.diagonal(M, dim1=1, dim2=2).sqrt()
+    Ms = M * dinv[:, :, None] * dinv[:, None, :]
+    shift = 1e-3 * torch.rand((B, k), generator=g, **f64)
+    return (M, dinv, shift, spd_inverse_plain(Ms.float())[0],
+            spd_inverse_plain(Ms)[0])
+
+
+def phase_k2(record):
+    import itertools
+    import torch
     from minotaur_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
     dev = torch.device("cuda")
-    rng = np.random.default_rng(1)
-    B, k = 64, 300
-    M = spd_batch(rng, B, k) * 50.0
-    d = np.sqrt(np.diagonal(M, axis1=1, axis2=2))
-    dinv = 1.0 / d
-    Ms = torch.as_tensor(M * dinv[:, :, None] * dinv[:, None, :],
-                         dtype=torch.float32, device=dev)
-    minv32, _ = spd_inverse(Ms)
-    minv64, _ = spd_inverse(Ms.double())
-    shift = rng.uniform(0, 1e-3, size=(B, k))
-    worst = 0.0
-    main_err = None
-    for fdt, mdt in ((torch.float32, torch.float32),
-                     (torch.float32, torch.float64),
-                     (torch.float64, torch.float64)):
-        minv = minv32 if fdt == torch.float32 else minv64
-        mop = torch.as_tensor(M, dtype=mdt, device=dev)
-        dv = torch.as_tensor(dinv, dtype=mdt, device=dev)
-        sh = torch.as_tensor(shift, dtype=mdt, device=dev)
-        for steps in (0, 2):
-            for R in (1, 8):
-                r = torch.as_tensor(rng.standard_normal((B, k, R)),
-                                    dtype=mdt, device=dev)
-                if R == 1:
-                    r = r[:, :, 0]
-                x = spd_solve(minv, mop, dv, sh, r, steps)
-                px = spd_solve_plain(minv, mop, dv, sh, r, steps)
+    F32, F64 = torch.float32, torch.float64
+    # k: the scalar path (1, 31, 33, 301) and the 16-byte path (300, 1000;
+    # at k=1000, R=8 the refinement vectors of an f64 operator leave shared
+    # memory); dtypes (factor, operator, r, x): the three pairs and the
+    # main path's f32 pair with f64 r and x
+    combos = ((F32, F32, F32, F32), (F32, F64, F64, F64),
+              (F64, F64, F64, F64), (F32, F32, F64, F64))
+    worst = {}
+    ncase = 0
+    for k in (1, 31, 33, 300, 301, 1000):
+        for B in (1, 64):
+            M, dinv, shift, minv32, minv64 = k2_inputs(dev, B, k, 1000 * k + B)
+            for R, steps, (fdt, mdt, rdt, odt) in itertools.product(
+                    (1, 3, 8), (0, 1, 3), combos):
+                r = torch.randn((B, k, R), dtype=F64, device=dev)
+                args = (minv32 if fdt == F32 else minv64, M.to(mdt),
+                        dinv.to(mdt), shift.to(mdt),
+                        (r[:, :, 0] if R == 1 else r).to(rdt))
+                x = spd_solve(*args, steps, odt)
+                px = spd_solve_plain(*args, steps, odt)
                 torch.cuda.synchronize()
+                what = (k, B, R, steps, str(fdt), str(mdt), str(rdt), str(odt))
+                check(x.dtype == odt and x.shape == px.shape,
+                      f"K2 dtype/shape at {what}")
                 err = (x - px).abs().max().item()
-                tol = 1e-5 if fdt == torch.float32 else 1e-11
+                tol = 1e-5 if fdt == F32 else 1e-11
                 check(err <= tol * px.abs().max().item(),
-                      f"K2 vs plain {err:.3g} at {(fdt, mdt, steps, R)}")
-                rr = r if R > 1 else r[:, :, None]
-                xx = x.double() if R > 1 else x.double()[:, :, None]
-                res = (rr.double() - (mop.double() @ xx + sh.double()[:, :, None] * xx)
-                       ).norm() / rr.double().norm()
+                      f"K2 vs plain {err:.3g} at {what}")
+                # Minv_s inverts M; refinement converges to the solve with
+                # the shifted operator M + diag(shift)
+                xx = x.double().reshape(B, k, R)
+                op = M @ xx + (shift[:, :, None] * xx if steps else 0.0)
+                res = (r - op).norm() / r.norm()
                 check(res.item() < (1e-5 if steps else 1e-4),
-                      f"K2 residual {res.item():.3g} at {(fdt, mdt, steps, R)}")
-                worst = max(worst, err)
-                if (fdt, mdt, steps, R) == (torch.float32, torch.float32, 0, 1):
-                    main_err = err
-    mop = torch.as_tensor(M, dtype=torch.float32, device=dev)
-    dv = torch.as_tensor(dinv, dtype=torch.float32, device=dev)
-    sh = torch.zeros((B, k), dtype=torch.float32, device=dev)
-    r = torch.as_tensor(rng.standard_normal((B, k)), dtype=torch.float32,
-                        device=dev)
-    t_k = event_ms(lambda: spd_solve(minv32, mop, dv, sh, r, 0))
-    t_p = event_ms(lambda: spd_solve_plain(minv32, mop, dv, sh, r, 0))
-    t_k2 = event_ms(lambda: spd_solve(minv32, mop, dv, sh, r, 2))
-    t_p2 = event_ms(lambda: spd_solve_plain(minv32, mop, dv, sh, r, 2))
-    b_ms, b_by = k2_bound(B, k, minv32.element_size())
-    say(f"[4] K2 spd_solve ok: max|kernel-plain| {worst:.3g} over "
-        f"refine {{0,2}} x R {{1,8}} x 3 dtype pairs; ms per call (64,300) "
-        f"f32 refine 0: kernel {t_k:.4f} plain {t_p:.4f} bound {b_ms:.4f} "
-        f"({b_by}); refine 2: kernel {t_k2:.4f} plain {t_p2:.4f}")
+                      f"K2 residual {res.item():.3g} at {what}")
+                key = (fdt, mdt, rdt, odt)
+                worst[key] = max(worst.get(key, 0.0), err)
+                ncase += 1
+    # times at the bench shape
+    B, k = 64, 300
+    M, dinv, shift, minv32, minv64 = k2_inputs(dev, B, k, 7)
+    m32, d32, z32 = M.float(), dinv.float(), torch.zeros((B, k), device=dev)
+    r64 = torch.randn((B, k), dtype=F64, device=dev)
+    r32 = r64.float()
+    t = {}
+
+    def both(key, *args):
+        # device time per call (graph replay) and the time per call of
+        # back-to-back calls from Python, which the host's dispatch of
+        # the wrapper (or of the plain version's ops) can set
+        for name, fn in (("", spd_solve), ("plain_", spd_solve_plain)):
+            t[key + name + "ms"] = graph_ms(lambda: fn(*args))
+            t[key + name + "call_ms"] = event_ms(lambda: fn(*args))
+
+    # (a) refine 0, f32, L2-warm: Minv (23 MB) stays in the 50 MB L2, as
+    # between the solves of one IPM iteration
+    both("", minv32, m32, d32, z32, r32, 0)
+    # (b) L2-cold: four input sets (92 MB) in turn inside the timed window
+    sets = [minv32] + [minv32 + 0.0 for _ in range(3)]
+    turn = itertools.cycle(sets)
+    t["cold_ms"] = graph_ms(
+        lambda: spd_solve(next(turn), m32, d32, z32, r32, 0), calls=40)
+    t["cold_plain_ms"] = graph_ms(
+        lambda: spd_solve_plain(next(turn), m32, d32, z32, r32, 0), calls=40)
+    # (c) the main path's call: f64 r in, f64 x out
+    both("main_", minv32, m32, d32, z32, r64, 0, F64)
+    # (d) refine 2, f32
+    both("refine2_", minv32, m32, d32, shift.float(), r32, 2)
+    # (e) f64 factors and operator, refine 3 (the dtype f64 policy's call)
+    both("f64_refine3_", minv64, M, dinv, shift, r64, 3)
+    # (f) the product alone, as a yardstick (not K2's function)
+    u = (r32 * d32)[:, :, None]
+    t["bmm_core_ms"] = graph_ms(lambda: torch.bmm(minv32, u))
+    b_ms, b_by = k2_bound(B, k, 4)
+    t["refine2_bound_ms"] = k2_bound(B, k, 4, 4, steps=2)[0]
+    t["f64_refine3_bound_ms"] = k2_bound(B, k, 8, 8, steps=3)[0]
+    main_err = worst[(F32, F32, F64, F64)]
+    say(f"[4] K2 spd_solve ok on {ncase} cases (k 1..1000, B 1/64, R 1/3/8, "
+        f"refine 0/1/3, 4 dtype combos): max|kernel-plain| "
+        + ", ".join(f"{'/'.join(str(d)[6:] for d in key)} {v:.3g}"
+                    for key, v in worst.items())
+        + f"; ms per call at (64,300), device (CUDA graph replay) and, in "
+        f"brackets, back-to-back calls from Python: refine 0 f32 kernel "
+        f"{t['ms']:.4f} [{t['call_ms']:.4f}] plain {t['plain_ms']:.4f} "
+        f"[{t['plain_call_ms']:.4f}] bound {b_ms:.4f} ({b_by}); L2-cold "
+        f"kernel {t['cold_ms']:.4f} plain {t['cold_plain_ms']:.4f}; main path "
+        f"(f64 r, x) kernel {t['main_ms']:.4f} [{t['main_call_ms']:.4f}] "
+        f"plain {t['main_plain_ms']:.4f} [{t['main_plain_call_ms']:.4f}]; "
+        f"refine 2 kernel {t['refine2_ms']:.4f} [{t['refine2_call_ms']:.4f}] "
+        f"plain {t['refine2_plain_ms']:.4f} bound "
+        f"{t['refine2_bound_ms']:.4f}; f64 refine 3 kernel "
+        f"{t['f64_refine3_ms']:.4f} [{t['f64_refine3_call_ms']:.4f}] plain "
+        f"{t['f64_refine3_plain_ms']:.4f} bound "
+        f"{t['f64_refine3_bound_ms']:.4f}; bmm alone {t['bmm_core_ms']:.4f}")
     # no single PyTorch call computes the scaled, refined solve
-    record["spd_solve"] = dict(max_abs_err=main_err, ms=t_k, plain_ms=t_p,
-                               bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                               refine2_ms=t_k2, refine2_plain_ms=t_p2)
+    record["spd_solve"] = dict(max_abs_err=main_err, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None, **t)
 
 
 def phase_ipm(record):

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled at first use, with one `nvcc` call,
-into a shared library with a plain C interface under
+Every `csrc/*.cu` file is compiled at first use, one `nvcc` process per
+source, all started together, and linked into a shared library with a
+plain C interface under
 `minotaur_tpu_torch/_build/`, and loaded with ctypes.  The library name
 carries a hash of the sources, so an edited kernel is rebuilt and an
 unchanged one is loaded as it is.  No PyTorch header is included: a
@@ -26,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: float = 0.0
@@ -73,17 +74,33 @@ def build() -> str:
     t0 = time.monotonic()
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    objs = [f"{tmp}.{i}.o" for i in range(len(cu))]
     try:
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-o", tmp] + cu
+        nvcc = _nvcc()
+        jobs = []
+        for src, obj in zip(cu, objs):
+            cmd = [nvcc] + NVCC_FLAGS + ["-I", CSRC, "-c", "-o", obj, src]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, proc in jobs:          # wait for every compile
+            out_s, err_s = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out_s}\n{err_s}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", tmp] + objs
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for path in objs + [tmp]:
+            if os.path.exists(path):
+                os.remove(path)
     build_seconds = time.monotonic() - t0
     return out
 
@@ -98,12 +115,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     # (k, itemsize) -> elements per lane of the global panel buffer
     lib.mt_spd_inverse_wbuf_elems.argtypes = [i, i]
     lib.mt_spd_inverse_wbuf_elems.restype = ctypes.c_longlong
-    for suffix in ("f32_f32", "f32_f64", "f64_f64"):
+    # factor, operator, r and x dtypes
+    for suffix in ("f32_f32_f32_f32", "f32_f32_f32_f64", "f32_f32_f64_f32",
+                   "f32_f32_f64_f64", "f32_f64_f64_f64", "f64_f64_f64_f64"):
         fn = getattr(lib, f"mt_spd_solve_{suffix}")
-        # (minv, m_op, dinv, shift, r, x, res, x2, res2, u,
-        #  B, k, R, refine_steps, stream)
-        fn.argtypes = [p] * 10 + [i, i, i, i, p]
+        # (minv, m_op, dinv, shift, r, x, scratch, B, k, R, refine_steps,
+        #  stream)
+        fn.argtypes = [p] * 7 + [i, i, i, i, p]
         fn.restype = i
+    # (k, R, factor itemsize, operator itemsize, refine_steps) -> bytes of
+    # global scratch per lane
+    lib.mt_spd_solve_scratch_bytes.argtypes = [i] * 5
+    lib.mt_spd_solve_scratch_bytes.restype = ctypes.c_longlong
 
 
 def load_library() -> ctypes.CDLL:

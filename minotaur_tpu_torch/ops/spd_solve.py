@@ -11,13 +11,18 @@ JAX IPM runs as XLA ops in engines/ipm.py::_make_spd_solver.solve_xla:
 One call serves every right-hand side of a factorization: `r` is
 (B, k) or (B, k, R), and the monotone test uses ONE norm per lane over
 all R columns.  `minv_s` is in the factor dtype (float32 or float64);
-`m_op`, `dinv`, `shift` and `r` are in the operator dtype, in which the
-refinement runs; the result is cast to `out_dtype`.
+`m_op`, `dinv` and `shift` are in the operator dtype, in which the
+refinement runs; `r` is taken to the operator dtype and the result to
+`out_dtype`.
 
 `spd_solve` dispatches on the tensor's device: CPU tensors go to the
 plain PyTorch version `spd_solve_plain`; CUDA tensors go to the CUDA
 kernel `csrc/spd_solve.cu` and nothing else.  `spd_solve.launches`
-counts kernel launches.
+counts calls that launched it (one kernel per call).  At refine 0 the
+kernel runs a grid of 32-row blocks times lanes; with refinement, one
+CTA per lane.  Float64 `r` and a float64 result are read and written by
+the kernel itself, so the IPM's mixed policy (float32 operator, float64
+vectors) runs no cast kernels around the call.
 """
 
 from __future__ import annotations
@@ -28,11 +33,11 @@ import torch
 
 from . import _build
 
-_KERNELS = {
-    (torch.float32, torch.float32): "mt_spd_solve_f32_f32",
-    (torch.float32, torch.float64): "mt_spd_solve_f32_f64",
-    (torch.float64, torch.float64): "mt_spd_solve_f64_f64",
-}
+# (factor, operator) dtype pairs with a kernel; r and x may each be in the
+# operator dtype or float64 (the kernel converts at the load and the store)
+_PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.float64),
+          (torch.float64, torch.float64))
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def spd_solve_plain(minv_s, m_op, dinv, shift, r, refine_steps: int,
@@ -67,16 +72,14 @@ def spd_solve_plain(minv_s, m_op, dinv, shift, r, refine_steps: int,
 
 
 def _shapes(minv_s, m_op, dinv, shift, r):
-    if minv_s.dim() != 3 or minv_s.shape[1] != minv_s.shape[2]:
-        raise ValueError(f"spd_solve: minv_s must be (B, k, k), got "
-                         f"{tuple(minv_s.shape)}")
-    B, k = minv_s.shape[0], minv_s.shape[1]
-    if tuple(m_op.shape) != (B, k, k):
-        raise ValueError(f"spd_solve: m_op must be {(B, k, k)}")
-    for name, v in (("dinv", dinv), ("shift", shift)):
-        if tuple(v.shape) != (B, k):
-            raise ValueError(f"spd_solve: {name} must be {(B, k)}")
-    if r.dim() not in (2, 3) or tuple(r.shape[:2]) != (B, k):
+    s = minv_s.shape
+    if len(s) != 3 or s[1] != s[2]:
+        raise ValueError(f"spd_solve: minv_s must be (B, k, k), got {tuple(s)}")
+    if m_op.shape != s:
+        raise ValueError(f"spd_solve: m_op must be {tuple(s)}")
+    if dinv.shape != s[:2] or shift.shape != s[:2]:
+        raise ValueError(f"spd_solve: dinv and shift must be {tuple(s[:2])}")
+    if r.dim() not in (2, 3) or r.shape[:2] != s[:2]:
         raise ValueError(f"spd_solve: r must be (B, k) or (B, k, R), got "
                          f"{tuple(r.shape)}")
 
@@ -86,8 +89,7 @@ def spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps: int,
     """Launch the CUDA kernel (all operands CUDA tensors)."""
     _shapes(minv_s, m_op, dinv, shift, r)
     md = m_op.dtype
-    name = _KERNELS.get((minv_s.dtype, md))
-    if name is None:
+    if (minv_s.dtype, md) not in _PAIRS:
         raise TypeError(f"spd_solve: no kernel for factor {minv_s.dtype} / "
                         f"operator {md}")
     dev = minv_s.device
@@ -99,32 +101,43 @@ def spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps: int,
         raise ValueError("spd_solve: minv_s and m_op must be contiguous")
     if refine_steps < 0:
         raise ValueError("spd_solve: refine_steps must be >= 0")
-    vec = r.dim() == 2
-    B, k = minv_s.shape[0], minv_s.shape[1]
-    R = 1 if vec else r.shape[2]
-    # small (B, k[, R]) vectors: converting them here is the cast that
-    # base_solve applies (rr.astype(M.dtype), dinv.astype(M.dtype))
-    rr = r.to(md).reshape(B, k, R).contiguous()
-    dv = dinv.to(md).contiguous()
-    sh = shift.to(md).contiguous()
-    x = torch.empty((B, k, R), dtype=md, device=dev)
-    if B and R:
-        lib = _build.load_library()
-        res = torch.empty_like(x)
-        x2 = torch.empty_like(x)
-        res2 = torch.empty_like(x)
-        u = torch.empty((B, k, R), dtype=minv_s.dtype, device=dev)
+    if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = getattr(lib, name)(
-                minv_s.data_ptr(), m_op.data_ptr(), dv.data_ptr(),
-                sh.data_ptr(), rr.data_ptr(), x.data_ptr(), res.data_ptr(),
-                x2.data_ptr(), res2.data_ptr(), u.data_ptr(), B, k, R,
-                int(refine_steps), stream)
+            return spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps,
+                                  out_dtype)
+    B, k = minv_s.shape[0], minv_s.shape[1]
+    R = 1 if r.dim() == 2 else r.shape[2]
+    od = out_dtype or md
+    # r and x keep their dtype where the kernel has it (the operator's or
+    # float64): it takes r to the operator dtype at the load and x to od
+    # at the store, the casts of base_solve, with no cast kernels around
+    rr = (r if r.dtype in (md, torch.float64) else r.to(md)).contiguous()
+    xd = od if od in (md, torch.float64) else md
+    dv = (dinv if dinv.dtype == md else dinv.to(md)).contiguous()
+    sh = (shift if shift.dtype == md else shift.to(md)).contiguous()
+    x = torch.empty(r.shape, dtype=xd, device=dev)
+    if B and k and R:
+        lib = _build.load_library()
+        fn = getattr(lib, "mt_spd_solve_" + "_".join(
+            _SUFFIX[t] for t in (minv_s.dtype, md, rr.dtype, xd)))
+        scratch = None
+        if refine_steps:
+            # a global buffer only where a lane's refinement vectors do
+            # not fit shared memory (the C module decides)
+            n = lib.mt_spd_solve_scratch_bytes(
+                k, R, minv_s.element_size(), m_op.element_size(),
+                int(refine_steps))
+            if n < 0:
+                _build.check(-n, "spd_solve device query")
+            if n:
+                scratch = torch.empty(B * n, dtype=torch.uint8, device=dev)
+        err = fn(minv_s.data_ptr(), m_op.data_ptr(), dv.data_ptr(),
+                 sh.data_ptr(), rr.data_ptr(), x.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), B, k, R,
+                 int(refine_steps), torch.cuda.current_stream().cuda_stream)
         _build.check(err, "spd_solve kernel launch")
         spd_solve.launches += 1
-    x = x.to(out_dtype or md)
-    return x[:, :, 0] if vec else x
+    return x if xd == od else x.to(od)
 
 
 def spd_solve(minv_s, m_op, dinv, shift, r, refine_steps: int = 0,

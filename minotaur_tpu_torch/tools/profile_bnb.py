@@ -8,15 +8,18 @@ ipm_refine_steps 0, ipm_chol_retry 0) and prints one JSON object:
   plain PyTorch versions, in the order kernel, plain, plain, kernel (so
   drift of the card or the host shows as spread), then once through the
   kernels under `dtype f64`.  Each run: status, nodes, seconds, nodes/s,
-  IPM iterations (summed over lanes), KKT factorizations/s, lb, ub.
-- `profile`: a shorter kernel run under torch.profiler: wall seconds,
-  the union of device kernel intervals (device busy share under the
-  profiler, which slows the host), the top device kernels by time, each
-  port kernel's share of kernel time with its device launches beside the
-  wrapper's count (K1 is three device kernels per wrapper call), and the
-  host's seconds blocked in CUDA synchronisation calls (what is left of
-  the wall is the host's own work, during which the device runs queued
-  kernels).
+  IPM iterations (summed over lanes), KKT factorizations/s, lb, ub, and
+  each kernel wrapper's launches.
+- `profile` (mixed policy) and `profile_f64` (`dtype f64`): a shorter
+  kernel run under torch.profiler: wall seconds, the union of device
+  kernel intervals (device busy share under the profiler, which slows the
+  host), the top device kernels by time, each port kernel's share of
+  kernel time with its device launches beside the wrapper's count (K1
+  is three device kernels per call, K2 one), the device kernels run just
+  before and just after each of its launches (so a cast kernel around
+  every K2 call would show), and the host's seconds blocked in CUDA
+  synchronisation calls (what is left of the wall is the host's own
+  work, during which the device runs queued kernels).
 
 Usage: python -m minotaur_tpu_torch.tools.profile_bnb [--out FILE]
 """
@@ -58,9 +61,27 @@ def plain_kernels():
         ipm.spd_inverse, ipm.spd_solve = saved
 
 
+def _neighbours(kern, name: str) -> dict:
+    """For the device kernels whose name contains `name`: counts, by name,
+    of the kernel run just before and just after each of them (the port
+    uses one stream, so device order is launch order).  A cast kernel
+    around every K2 launch would show here."""
+    seq = sorted(kern, key=lambda e: e.time_range.start)
+    out = {"before": {}, "after": {}}
+    for i, e in enumerate(seq):
+        if name not in e.name:
+            continue
+        for side, j in (("before", i - 1), ("after", i + 1)):
+            if 0 <= j < len(seq):
+                n = seq[j].name[:80]
+                out[side][n] = out[side].get(n, 0) + 1
+    return out
+
+
 def solve_intquad300(nodes: int, dtype: str = "mixed", n: int = 300,
                      device: str = "cuda") -> dict:
     """One capped B&B search; returns its end-to-end numbers."""
+    from minotaur_tpu_torch import device as mdev
     from minotaur_tpu_torch.bnb.bnb import BranchAndBound
     from minotaur_tpu_torch.models.convex_suite2 import intquad
     from minotaur_tpu_torch.utils.environment import Environment
@@ -68,6 +89,7 @@ def solve_intquad300(nodes: int, dtype: str = "mixed", n: int = 300,
     for k, v in BENCH_OPTIONS + (("bnb_node_limit", nodes), ("dtype", dtype)):
         env.set_option(k, v)
     bab = BranchAndBound(intquad(n, 4, 0), env, device=device)
+    mdev.reset_launches()
     t0 = time.monotonic()
     st = bab.solve()
     dt = time.monotonic() - t0
@@ -75,7 +97,8 @@ def solve_intquad300(nodes: int, dtype: str = "mixed", n: int = 300,
     return dict(status=st.name, nodes=s.nodes_processed, s=dt,
                 nodes_per_s=s.nodes_processed / dt, ipm_iters=s.ipm_iters,
                 kkt_fact_per_s=s.ipm_iters / dt, batches=s.batches,
-                lb=float(bab.lb), ub=float(bab.ub))
+                lb=float(bab.lb), ub=float(bab.ub),
+                launches=mdev.launch_counts())
 
 
 def _union_us(intervals) -> float:
@@ -88,9 +111,10 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_run(nodes: int) -> dict:
-    """A kernel-path run under torch.profiler: device busy share and the
-    top device kernels by total time."""
+def profile_run(nodes: int, dtype: str = "mixed") -> dict:
+    """A kernel-path run under torch.profiler: device busy share, the top
+    device kernels by total time, and the device kernels per wrapper
+    call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -99,7 +123,7 @@ def profile_run(nodes: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        run = solve_intquad300(nodes)
+        run = solve_intquad300(nodes, dtype)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     events = prof.events()
@@ -116,14 +140,18 @@ def profile_run(nodes: int) -> dict:
     port = {}
     for kname in launches:
         mine = [(t, c, n) for n, (t, c) in by_name.items() if kname in n]
+        calls = launches[kname]
         port[kname] = dict(
             ms=sum(t for t, _, _ in mine) / 1e3,
             share=sum(t for t, _, _ in mine) / total if total else None,
             device_launches={n[:80]: c for _, c, n in mine},
-            wrapper_calls=launches[kname])
+            wrapper_calls=calls,
+            device_kernels_per_call=(sum(c for _, c, _ in mine) / calls
+                                     if calls else None),
+            neighbours=_neighbours(kern, kname))
     blocked_us = sum(e.time_range.elapsed_us() for e in events
                      if e.device_type == DeviceType.CPU and e.name in SYNC_CALLS)
-    return dict(run=run, wall_s=wall, device_kernels=len(kern),
+    return dict(dtype=dtype, run=run, wall_s=wall, device_kernels=len(kern),
                 device_busy_s=busy_s,
                 device_busy_share=busy_s / wall if kern else None,
                 kernel_time_s=total / 1e6,
@@ -155,6 +183,7 @@ def main(argv=None) -> int:
         print(json.dumps(r), flush=True)
         out["runs"].append(r)
     out["profile"] = profile_run(PROFILED_NODES)
+    out["profile_f64"] = profile_run(PROFILED_NODES, "f64")
     text = json.dumps(out, indent=1)
     if args.out:
         with open(args.out, "w") as fh:

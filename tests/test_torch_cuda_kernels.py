@@ -74,37 +74,67 @@ def test_spd_inverse_kernel_matches_plain(cuda, dtype, B, k, defect):
     assert (minv - pminv).abs().max() <= tol * scale
 
 
-def _solve_setup(n, B, seed=0):
-    rng = np.random.default_rng(seed)
-    A = rng.standard_normal((B, n, n))
-    M = np.einsum("bij,bkj->bik", A, A) + n * np.eye(n)[None]
-    dinv = 1.0 / np.sqrt(np.diagonal(M, axis1=1, axis2=2))
-    Ms = (M * dinv[:, :, None] * dinv[:, None, :]).astype(np.float32)
-    minv, _ = spd_inverse_plain(torch.from_numpy(Ms))
-    return M, minv.numpy(), dinv
+_SOLVE_INPUTS = {}
 
 
-@pytest.mark.parametrize("steps", [0, 2])
-@pytest.mark.parametrize("R", [1, 8])
-@pytest.mark.parametrize("fdt,mdt", [(torch.float32, torch.float32),
-                                     (torch.float32, torch.float64),
-                                     (torch.float64, torch.float64)])
-def test_spd_solve_kernel_matches_plain(cuda, steps, R, fdt, mdt):
-    M, minv, dinv = _solve_setup(300, 64)
-    rng = np.random.default_rng(3)
-    r = rng.standard_normal((64, 300, R))
-    args = (torch.from_numpy(minv).to(cuda, fdt),
-            torch.from_numpy(M).to(cuda, mdt),
-            torch.from_numpy(dinv).to(cuda, mdt),
-            torch.from_numpy(rng.uniform(0, 1e-3, (64, 300))).to(cuda, mdt),
-            torch.from_numpy(r).to(cuda, mdt))
+def _solve_setup(cuda, B, k):
+    """(M, dinv, shift, Minv_s f32, Minv_s f64) for B lanes of order k,
+    float64 on the card, made once per (B, k) from a seeded generator."""
+    if (B, k) not in _SOLVE_INPUTS:
+        g = torch.Generator(device=cuda).manual_seed(1000 * k + B)
+        f64 = dict(dtype=torch.float64, device=cuda)
+        A = torch.randn((B, k, k), generator=g, **f64)
+        M = A @ A.transpose(1, 2) + k * torch.eye(k, **f64)
+        dinv = 1.0 / torch.diagonal(M, dim1=1, dim2=2).sqrt()
+        Ms = M * dinv[:, :, None] * dinv[:, None, :]
+        shift = 1e-3 * torch.rand((B, k), generator=g, **f64)
+        _SOLVE_INPUTS[(B, k)] = (M, dinv, shift, spd_inverse_plain(Ms.float())[0],
+                                 spd_inverse_plain(Ms)[0])
+    return _SOLVE_INPUTS[(B, k)]
+
+
+F32, F64 = torch.float32, torch.float64
+
+
+# k: the scalar path (1, 31, 33, 301), the 16-byte path (300, 1000), and
+# 1000, whose refinement vectors at R=8 leave shared memory for the f64
+# operator; dtypes (factor, operator, r, x): the three pairs, and the
+# main path's float32 pair with float64 r and x
+@pytest.mark.parametrize("steps", [0, 1, 3])
+@pytest.mark.parametrize("R", [1, 3, 8])
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("k", [1, 31, 33, 300, 301, 1000])
+@pytest.mark.parametrize("fdt,mdt,rdt,odt", [(F32, F32, F32, F32),
+                                             (F32, F64, F64, F64),
+                                             (F64, F64, F64, F64),
+                                             (F32, F32, F64, F64)])
+def test_spd_solve_kernel_matches_plain(cuda, steps, R, B, k, fdt, mdt, rdt,
+                                        odt):
+    M, dinv, shift, minv32, minv64 = _solve_setup(cuda, B, k)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    r = torch.randn((B, k, R), generator=g, dtype=F64, device=cuda)
+    args = (minv32 if fdt == F32 else minv64, M.to(mdt), dinv.to(mdt),
+            shift.to(mdt), (r[:, :, 0] if R == 1 else r).to(rdt))
     n0 = spd_solve.launches
-    x = spd_solve(*args, steps, torch.float64)
+    x = spd_solve(*args, steps, odt)
     torch.cuda.synchronize()
     assert spd_solve.launches == n0 + 1
-    px = spd_solve_plain(*args, steps, torch.float64)
-    tol = 1e-5 if fdt == torch.float32 else 1e-12
+    px = spd_solve_plain(*args, steps, odt)
+    assert x.dtype == odt and x.shape == px.shape
+    tol = 1e-5 if fdt == F32 else 1e-12
     assert (x - px).abs().max() <= tol * px.abs().max()
+
+
+def test_spd_solve_main_path_dtypes_one_launch(cuda):
+    # the main path's call: float32 factors and operator, float64 r and
+    # x; one wrapper call is one launch, and x comes back in float64
+    M, dinv, shift, minv32, _ = _solve_setup(cuda, 64, 300)
+    r = torch.randn((64, 300), dtype=F64, device=cuda)
+    n0 = spd_solve.launches
+    x = spd_solve(minv32, M.float(), dinv.float(), shift.float(), r, 0, F64)
+    torch.cuda.synchronize()
+    assert spd_solve.launches == n0 + 1
+    assert x.dtype == F64 and x.shape == (64, 300)
 
 
 def test_wrappers_raise_on_unsupported_input(cuda):

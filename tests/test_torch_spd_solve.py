@@ -82,6 +82,50 @@ def test_matrix_rhs_matches_jax_solve_xla():
     np.testing.assert_allclose(px, jx, rtol=0, atol=RTOL * np.abs(px).max())
 
 
+# The port's IPM solver against the JAX package's, on the same numpy
+# inputs: the main path's dtypes (float32 operator and factors, float64
+# right-hand side and result, no refinement: the kernel reads float64 r and
+# writes float64 x itself), refinement with a matrix right-hand side, and
+# float64 factors with the floor of 3 refinement rounds.  Tolerance: the two
+# packages invert the scaled matrix by different routes (cho_solve(I)
+# against Linv' Linv) and sum in different orders, so float32 factors agree
+# to a few eps32 times kappa (about 10 here): 1e-5 relative to max|x|, as
+# above; float64 factors with 3 rounds agree to 1e-12.
+@pytest.mark.parametrize("case", ["main_f32_rhs64_refine0",
+                                  "f32_refine2_R5", "f64_floor3"])
+def test_solver_matches_jax_make_spd_solver(case):
+    from minotaur_tpu.engines.ipm import IPMOptions as JOpts
+    from minotaur_tpu.engines.ipm import _make_spd_solver as jax_solver
+    from minotaur_tpu_torch.engines.ipm import IPMOptions, _make_spd_solver
+    n, B = 48, 3
+    M, _, _ = _setup(n, B=B, seed=11)
+    rng = np.random.default_rng(12)
+    if case == "main_f32_rhs64_refine0":
+        use_f32, opts, rhs, tol = True, dict(refine_steps=0), \
+            rng.standard_normal((B, n)), RTOL
+    elif case == "f32_refine2_R5":
+        use_f32, opts, rhs, tol = True, dict(refine_steps=2), \
+            rng.standard_normal((B, n, 5)), RTOL
+    else:
+        use_f32, opts, rhs, tol = False, dict(refine_steps=0), \
+            rng.standard_normal((B, n, 2)), 1e-12
+    opts["chol_retry"] = False
+    Mi = M.astype(np.float32) if use_f32 else M
+
+    def one(Ml, rl):
+        solve, _ = jax_solver(jax, jnp, Ml, JOpts(**opts), use_f32=use_f32,
+                              out_dtype=jnp.float64)
+        return solve(rl)
+
+    jx = np.asarray(jax.vmap(one)(jnp.asarray(Mi), jnp.asarray(rhs)))
+    solve, _ = _make_spd_solver(torch.from_numpy(Mi), IPMOptions(**opts),
+                                use_f32=use_f32, out_dtype=torch.float64)
+    px = solve(torch.from_numpy(rhs))
+    assert px.dtype == torch.float64 and tuple(px.shape) == rhs.shape
+    px = px.numpy()
+    np.testing.assert_allclose(px, jx, rtol=0, atol=tol * np.abs(px).max())
+
+
 def test_linearity_over_the_batch():
     M, minv, dinv = _setup(64, B=1)
     r = np.random.default_rng(2).standard_normal(64)

@@ -4,7 +4,8 @@ small size (the timed runs themselves need a card)."""
 import pytest
 
 from minotaur_tpu_torch import device as mdev
-from minotaur_tpu_torch.tools.profile_bnb import (_union_us, plain_kernels,
+from minotaur_tpu_torch.tools.profile_bnb import (_neighbours, _union_us,
+                                                  plain_kernels,
                                                   solve_intquad300)
 
 
@@ -29,3 +30,36 @@ def test_capped_search_same_through_plain_route():
     for k in ("status", "nodes", "ipm_iters", "lb", "ub"):
         assert a[k] == b[k], k
     assert a["nodes"] > 0 and a["lb"] <= a["ub"]
+
+
+def test_neighbours_of_a_kernel_in_device_order():
+    """The kernels run just before and after each launch of a port kernel,
+    in device (start time) order, whatever order the events come in."""
+    from types import SimpleNamespace as NS
+
+    def ev(name, start):
+        return NS(name=name, time_range=NS(start=start))
+
+    kern = [ev("cast", 2), ev("spd_solve_rows_kernel<float>", 3),
+            ev("add", 0), ev("spd_solve_rows_kernel<float>", 1),
+            ev("cast", 4)]
+    assert _neighbours(kern, "spd_solve") == {
+        "before": {"add": 1, "cast": 1}, "after": {"cast": 2}}
+    assert _neighbours(kern, "spd_inverse") == {"before": {}, "after": {}}
+
+
+def test_ipm_routes_agree_on_the_cpu():
+    """On CPU tensors every route runs the plain versions, so no lane's
+    status differs from the all-plain route; the batch is the root box
+    plus boxes with fixed variables."""
+    import numpy as np
+    from minotaur_tpu_torch.engines.staging import stage_problem
+    from minotaur_tpu_torch.models.convex_suite2 import intquad
+    from minotaur_tpu_torch.tools.ipm_routes import (phase5_boxes,
+                                                     route_statuses)
+    sp = stage_problem(intquad(12, 4, 0))
+    lo, hi = phase5_boxes(sp, 4)
+    assert lo.shape == (4, sp.n) and np.array_equal(lo[0], sp.vlb)
+    assert all((lo[b] == hi[b]).any() for b in range(1, 4))
+    assert route_statuses(12, 4, device="cpu") == {
+        "kernel/kernel": [], "kernel/plain": [], "plain/kernel": []}
