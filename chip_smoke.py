@@ -12,7 +12,15 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
      under the f64 policy and the bench's mixed settings;
   6. the main path: BranchAndBound(..., device="cuda") on cknap_30a and
      intquad(24) (against their exact oracles), then intquad(300) at the
-     bench settings (B=64 lanes), with the kernels' launch counts.
+     bench settings (B=64 lanes), with the kernels' launch counts;
+  7. the NL path: K1 and K2 at the NL shapes (64, 1024[, 1024]) in f64
+     against their plain versions; the batched NL IPM on normcon(1024, 7)
+     through the kernels against the plain versions (root box plus 63
+     seeded boxes), with the times of the Jacobian, the Hessian and one
+     NL FBBT round; BranchAndBound on four NL suite rows against their
+     oracles; the full-width normcon(1024, 7) search at B=64 (capped),
+     with the kernels' launch counts; and the `mbnb` CLI on a .nl file
+     written by the port's nl_writer.
 
 Every phase prints one line; any failed check raises and the process
 exits non-zero without the final line.  The next-to-last line is the
@@ -28,10 +36,15 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
+# phase 7: normcon(n, seed) at B lanes (SUITE["normcon_1024a"]), its full
+# search capped at node_cap nodes and time_cap seconds
+NL = dict(n=1024, seed=7, B=64, node_cap=512, time_cap=150.0)
+NL_ROWS = ("normcon_20a", "expbudget_8a", "ex1223_a", "batchdes_a")
 
 
 class CheckFailed(AssertionError):
@@ -506,6 +519,239 @@ def phase_main_path(record):
     record["launches"] = counts
 
 
+def phase_nl_kernels(record):
+    """K1 at (B, n, n) and K2 at (B, n) refine 3, float64 (every NL
+    factorization is f64 and every NL solve refines), against their plain
+    versions on the same inputs."""
+    import torch
+    from minotaur_tpu_torch.ops.spd_inverse import (spd_inverse,
+                                                    spd_inverse_plain)
+    from minotaur_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    dev = torch.device(DEVICE)
+    F64 = torch.float64
+    B, k = NL["B"], NL["n"]
+    g = torch.Generator(device=dev).manual_seed(11)
+    A = torch.randn((B, k, k), generator=g, dtype=F64, device=dev)
+    eye = torch.eye(k, dtype=F64, device=dev)
+    ms = A @ A.transpose(1, 2) / k + 2.0 * eye
+    del A
+    minv, flag = spd_inverse(ms)
+    pminv, pflag = spd_inverse_plain(ms)
+    torch.cuda.synchronize()
+    check(torch.equal(flag, pflag) and bool((flag == 0).all()),
+          "K1 (NL shape): flags differ from plain or a lane failed")
+    resid = (eye - ms @ minv).abs().max().item()
+    k1_err = (minv - pminv).abs().max().item()
+    check(resid < 1e-11, f"K1 (NL shape): residual {resid:.3g}")
+    check(k1_err <= 1e-11 * pminv.abs().max().item(),
+          f"K1 (NL shape) vs plain {k1_err:.3g}")
+    del minv, pminv
+    k1 = dict(ms=event_ms(lambda: spd_inverse(ms), calls=5, reps=3),
+              plain_ms=event_ms(lambda: spd_inverse_plain(ms), calls=5, reps=3),
+              library_ms=event_ms(lambda: torch.linalg.inv_ex(ms), calls=5,
+                                  reps=3))
+    k1["bound_ms"], k1_by = k1_bound(B, k, 8)
+    del ms
+    M, dinv, shift, _minv32, minv64 = k2_inputs(dev, B, k, 13)
+    del _minv32
+    r = torch.randn((B, k), dtype=F64, device=dev)
+    x = spd_solve(minv64, M, dinv, shift, r, 3, F64)
+    px = spd_solve_plain(minv64, M, dinv, shift, r, 3, F64)
+    torch.cuda.synchronize()
+    k2_err = (x - px).abs().max().item()
+    check(k2_err <= 1e-11 * px.abs().max().item(),
+          f"K2 (NL shape) vs plain {k2_err:.3g}")
+    res = ((r - (M @ x[:, :, None])[:, :, 0] - shift * x).norm() /
+           r.norm()).item()
+    check(res < 1e-5, f"K2 (NL shape) residual {res:.3g}")
+    args = (minv64, M, dinv, shift, r, 3, F64)
+    k2 = dict(ms=graph_ms(lambda: spd_solve(*args), calls=10, reps=3),
+              plain_ms=graph_ms(lambda: spd_solve_plain(*args), calls=10,
+                                reps=3))
+    k2["bound_ms"], k2_by = k2_bound(B, k, 8, 8, steps=3)
+    del M, minv64, args
+    torch.cuda.empty_cache()
+    say(f"[7] K1 spd_inverse ({B},{k},{k}) f64: flags equal to plain, resid "
+        f"{resid:.3g}, max|kernel-plain| {k1_err:.3g}; ms kernel "
+        f"{k1['ms']:.4f} plain {k1['plain_ms']:.4f} inv_ex "
+        f"{k1['library_ms']:.4f} bound {k1['bound_ms']:.4f} ({k1_by}).  "
+        f"K2 spd_solve ({B},{k}) f64 refine 3: max|kernel-plain| "
+        f"{k2_err:.3g}, resid {res:.3g}; device ms (CUDA graph replay) "
+        f"kernel {k2['ms']:.4f} plain {k2['plain_ms']:.4f} bound "
+        f"{k2['bound_ms']:.4f} ({k2_by})")
+    tag = f"f64_k{k}_"
+    record["spd_inverse"].update({tag + key: v for key, v in
+                                  dict(max_abs_err=k1_err, **k1).items()})
+    record["spd_solve"].update({tag + "refine3_" + key: v for key, v in
+                                dict(max_abs_err=k2_err, **k2).items()})
+
+
+def phase_nl_ipm(record):
+    """The batched NL IPM on normcon(n, seed), the root box plus B-1
+    seeded integer-fixing boxes, through the kernels and through their
+    plain versions; then the times of the NL pieces of one iteration and
+    of one superstep's FBBT round at this shape."""
+    import numpy as np
+    import torch
+    from torch.func import hessian, jacfwd, vmap
+    from minotaur_tpu_torch.bnb.step import build_fbbt_sweep
+    from minotaur_tpu_torch.engines.ipm import IPMOptions, build_batch_solver
+    from minotaur_tpu_torch.engines.staging import stage_problem
+    from minotaur_tpu_torch.models.convex_suite import normcon
+    from minotaur_tpu_torch.tools.profile_bnb import plain_kernels
+    sp = stage_problem(normcon(NL["n"], NL["seed"]))
+    rng = np.random.default_rng(7)
+    B = NL["B"]
+    lo = np.tile(sp.vlb, (B, 1))
+    hi = np.tile(sp.vub, (B, 1))
+    for b in range(1, B):
+        pick = rng.choice(sp.n, size=int(rng.integers(1, 40)), replace=False)
+        v = rng.integers(0, 4, size=len(pick)).astype(float)
+        lo[b, pick] = v
+        hi[b, pick] = v
+    solve = build_batch_solver(sp, IPMOptions(), device=DEVICE)
+
+    def timed():
+        t0 = time.monotonic()
+        r = solve(sp.A, sp.clb, sp.cub, lo, hi)
+        return r, time.monotonic() - t0
+
+    # kernel, plain, kernel: the first call also pays one-time costs
+    rk, t_first = timed()
+    with plain_kernels():
+        rp, t_p = timed()
+    rk2, t_k = timed()
+    check(np.array_equal(rk.status, rk2.status),
+          "NL IPM: the two kernel runs' statuses differ")
+    for r in (rk, rp):
+        check(np.all(np.isfinite(r.x)) and r.x.shape == (B, sp.n),
+              "NL IPM returned non-finite x")
+    same = rk.status == rp.status
+    check(bool(same.all()), f"NL IPM: statuses differ on lanes "
+          f"{np.where(~same)[0].tolist()}")
+    opt = rk.status == 1
+    check(bool(opt[0]), "NL IPM: root lane not SOLVED_OPTIMAL")
+    rel = np.where(opt, np.abs(rk.obj - rp.obj) / (1.0 + np.abs(rp.obj)), 0.0)
+    check(rel.max() <= 1e-6, f"NL IPM: objective mismatch {rel.max():.3g}")
+    # the NL pieces of one iteration at this shape, and one FBBT round
+    dev = torch.device(DEVICE)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    x, y = t(0.5 * (lo + hi)), t(rng.uniform(0.0, 1.0, (B, sp.m)))
+    rows = t(sp.nl_rows).long()
+    jac = vmap(jacfwd(sp.con_nl))
+    hess = vmap(hessian(lambda xx, yy: yy.index_select(-1, rows) @
+                        sp.con_nl(xx)))
+    jac_ms = event_ms(lambda: jac(x), calls=3, reps=3)
+    hess_ms = event_ms(lambda: hess(x, y), calls=3, reps=3)
+    sweep = build_fbbt_sweep(sp, 1e-6, dev)
+    A_t, clb_t, cub_t, lo_t, hi_t = t(sp.A), t(sp.clb), t(sp.cub), t(lo), t(hi)
+    nofeas = torch.zeros(B, dtype=torch.bool, device=dev)
+    fb = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        sweep(A_t, clb_t, cub_t, lo_t, hi_t, nofeas)
+        torch.cuda.synchronize()
+        fb.append(time.monotonic() - t0)
+    fbbt_ms = 1e3 * sorted(fb[1:])[1]
+    say(f"[7] NL IPM normcon({sp.n}) B={B} kernel vs plain ok: statuses "
+        f"equal {int(same.sum())}/{B}, optimal {int(opt.sum())}/"
+        f"{int((rp.status == 1).sum())}, max|dobj|/(1+|obj|) over optimal "
+        f"lanes {rel.max():.3g}, iters max {int(rk.iters.max())}/"
+        f"{int(rp.iters.max())}, wall s kernel {t_k:.2f} (first call "
+        f"{t_first:.2f}) plain {t_p:.2f}; "
+        f"at ({B},{sp.n}): Jacobian (vmap jacfwd) {jac_ms:.3f} ms, Hessian "
+        f"of the Lagrangian (vmap hessian) {hess_ms:.3f} ms (CUDA events, 3 "
+        f"calls, median of 3), one NL FBBT round {fbbt_ms:.1f} ms (host "
+        f"clock to a synchronize, median of 3 after one warm-up; "
+        f"{len(sp.nl_graphs[0])} graph nodes)")
+
+
+def phase_nl_bnb(record):
+    """BranchAndBound on NL suite rows against their exact oracles, then
+    the full-width normcon(n, seed) search (capped) with the kernels'
+    launch counts."""
+    from minotaur_tpu_torch import device as mdev
+    from minotaur_tpu_torch.bnb.bnb import BranchAndBound
+    from minotaur_tpu_torch.models.convex_suite import SUITE, normcon, \
+        normcon_optimum
+    from minotaur_tpu_torch.utils.environment import Environment
+    from minotaur_tpu_torch.utils.types import SolveStatus
+    for name in NL_ROWS:
+        gen, oracle, _ = SUITE[name]
+        env = Environment()
+        env.set_option("log_level", 1)
+        t0 = time.monotonic()
+        bab = BranchAndBound(gen(), env, device=DEVICE)
+        st = bab.solve()
+        dt = time.monotonic() - t0
+        opt = oracle()
+        check(st == SolveStatus.SOLVED_OPTIMAL, f"{name}: status {st.name}")
+        check(abs(bab.ub - opt) <= 1e-6 * (1 + abs(opt)),
+              f"{name}: ub {bab.ub} vs oracle {opt}")
+        say(f"[7] {name}: SOLVED_OPTIMAL ub {bab.ub:.10g} oracle {opt:.10g} "
+            f"nodes {bab.stats.nodes_processed} in {dt:.2f} s")
+
+    env = Environment()
+    for key, v in (("node_batch", NL["B"]), ("pad_full", 1),
+                   ("bnb_node_limit", NL["node_cap"]),
+                   ("bnb_time_limit", NL["time_cap"]), ("log_level", 1)):
+        env.set_option(key, v)
+    n, seed = NL["n"], NL["seed"]
+    opt = normcon_optimum(n, seed)
+    bab = BranchAndBound(normcon(n, seed), env, device=DEVICE)
+    mdev.reset_launches()
+    t0 = time.monotonic()
+    st = bab.solve()
+    dt = time.monotonic() - t0
+    counts = mdev.launch_counts()
+    tol = 1e-6 * (1 + abs(opt))
+    check(bab.lb <= opt + tol and opt <= bab.ub + tol,
+          f"normcon_{n} unsound: lb {bab.lb} opt {opt} ub {bab.ub}")
+    nodes = max(1, bab.stats.nodes_processed)
+    say(f"[7] normcon_{n} B={NL['B']}: status {st.name} lb {bab.lb:.10g} opt "
+        f"{opt:.10g} ub {bab.ub:.10g}; nodes {nodes} in {dt:.2f} s = "
+        f"{nodes / dt:.2f} nodes/s; IPM iterations {bab.stats.ipm_iters}; "
+        f"supersteps {bab.stats.batches}; dispatch-to-fetch s "
+        f"{bab.stats.t_device:.2f}; host bookkeeping s {bab.stats.t_host:.2f}; "
+        f"launches in this solve "
+        f"{{{', '.join(f'{k}: {v}' for k, v in counts.items())}}}")
+    for name, cnt in counts.items():
+        check(cnt > 0, f"kernel {name} was not launched by the NL path")
+    record["nl_launches"] = counts
+
+
+def phase_cli(record):
+    """`python -m minotaur_tpu_torch.solvers.mbnb file.nl` on the card:
+    normcon_20a written by the port's nl_writer."""
+    from minotaur_tpu_torch.io.nl_writer import write_nl
+    from minotaur_tpu_torch.models.convex_suite import SUITE
+    gen, oracle, _ = SUITE["normcon_20a"]
+    opt = oracle()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "normcon_20a.nl")
+        write_nl(gen(), path)
+        env = dict(os.environ, PYTHONPATH=HERE)
+        t0 = time.monotonic()
+        out = subprocess.run(
+            [sys.executable, "-m", "minotaur_tpu_torch.solvers.mbnb", path,
+             "--write_sol_file", "1"], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=300)
+        dt = time.monotonic() - t0
+        log = out.stdout + out.stderr
+        check(out.returncode == 0, f"mbnb exited {out.returncode}:\n{log[-3000:]}")
+        sol = os.path.join(tmp, "normcon_20a.sol")
+        check(os.path.exists(sol), "mbnb wrote no .sol file")
+        objs = [float(line.rsplit(" ", 1)[1]) for line in log.splitlines()
+                if "best objective:" in line]
+        check(len(objs) == 1 and abs(objs[0] - opt) <= 1e-6 * (1 + abs(opt)),
+              f"mbnb objective {objs} vs oracle {opt}")
+        with open(sol) as fh:
+            head = fh.readline().strip()
+    say(f"[7] mbnb CLI on normcon_20a.nl: exit 0 in {dt:.2f} s, best objective "
+        f"{objs[0]:.10g} (oracle {opt:.10g}), .sol '{head}'")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "minotaur_tpu_torch")):
         print("chip_smoke: minotaur_tpu_torch not found next to this "
@@ -523,6 +769,10 @@ def main() -> int:
     phase_k2(record)
     phase_ipm(record)
     phase_main_path(record)
+    phase_nl_kernels(record)
+    phase_nl_ipm(record)
+    phase_nl_bnb(record)
+    phase_cli(record)
     launches = record["launches"]
     kernels = []
     for name, src, rep in (
@@ -532,11 +782,12 @@ def main() -> int:
              "minotaur_tpu/ops/pallas_kernels.py:76")):
         r = dict(record[name])
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": rep, "launches": int(launches[name])}
+               "replaces": rep, "launches": int(launches[name]),
+               "nl_launches": int(record["nl_launches"][name])}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             row[key] = r.pop(key)
-        row.update(r)                   # the f64 and refine-2 extras
+        row.update(r)                   # the f64, refine and NL-shape extras
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

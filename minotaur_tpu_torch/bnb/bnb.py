@@ -11,9 +11,9 @@ BranchAndBound.cpp:274-296 (gap/time/node/sol limits).
 Port of minotaur_tpu/bnb/bnb.py.  The host code is the JAX package's, as
 it is; only the device seam changes (`_step`, `_device_consts`,
 `_dispatch_step`/`_fetch_step`), and the device is named by the caller
-(`device=`, default "cuda").  Options that take the search outside the
-ported LP/QP slice raise NotImplementedError in the constructor, and the
-code paths only they reach are left out.
+(`device=`, default "cuda").  Options the port does not have yet raise
+NotImplementedError in the constructor, and the code paths only they
+reach are left out.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ _INF = float("inf")
 
 # option -> value that leaves the slice
 _UNPORTED_OPTIONS = (
-    ("presolve_subst", True), ("device_tree", True), ("obbt", True),
+    ("device_tree", True), ("obbt", True),
     ("divheur", True), ("msheur", True), ("samplingheur", True),
     ("fixvarsheur", True), ("qpdheur", True), ("fpump", True),
     ("nodeproc", "qpd"), ("brancher", "weak"), ("dtype", "f32"),
@@ -97,10 +97,35 @@ class BranchAndBound:
         self.postsolve = None
         opts = self.env.options
         _check_unported(opts, problem)
+        if staged is None and opts.get("presolve_subst"):
+            # root substitution/elimination presolve (reference:
+            # LinearHandler::substVars_ LinearHandler.cpp:1429 +
+            # Presolver::getPostSol :288) — runs ONCE before staging, so
+            # the eliminated columns shrink every device program
+            from .substitute import substitute_problem
+            red = substitute_problem(
+                problem, int_tol=float(opts.get("int_tol")))
+            if red is not None:
+                problem, self.postsolve = red
+                self.env.logger.info(
+                    f"presolve: substitution eliminated "
+                    f"{self.postsolve.n_eliminated} columns "
+                    f"(n {self.postsolve.n_orig} -> {problem.n_vars}); "
+                    f"postsolve map recorded")
         self.problem = problem
-        # the JAX driver's structure-rewriting nonlinear presolve
-        # (quad_cone_reform) only rewrites nonlinear rows, which staging
-        # refuses in the slice: it is a no-op here
+        if staged is None and opts.get("nl_presolve"):
+            # structure-rewriting nonlinear presolve (must run BEFORE
+            # staging): big-M sum-of-squares rows tighten to their
+            # second-order-cone form (reference NlPresHandler::
+            # quadConeRef_, NlPresHandler.cpp:1135).  persp_ref raises
+            # in _check_unported.
+            from .nlpres import quad_cone_reform
+            ncr = quad_cone_reform(problem, int_tol=float(
+                opts.get("int_tol")) if opts.get("int_tol") else 1e-6)
+            if ncr:
+                self.env.logger.info(
+                    f"presolve: {ncr} big-M sum-of-squares rows "
+                    f"reformulated to cone form (quadConeRef)")
         self.sp = staged or stage_problem(problem)
         order = {"dfs": TreeSearchOrder.DFS, "bfs": TreeSearchOrder.BFS,
                  "BthenD": TreeSearchOrder.BEST_THEN_DIVE}.get(

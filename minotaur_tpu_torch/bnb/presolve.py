@@ -1,11 +1,11 @@
 """Root presolve: linear presolve + FBBT fixpoint.
 
-Port of minotaur_tpu/bnb/presolve.py for the LP/QP slice.
-`linear_presolve` and the unsafe-variable scan are host numpy, copied
-verbatim; `presolve` runs the
-FBBT fixpoint with two batched sweeps (one lane) per call on the port's
-device.  `nl_coef_improve` is a no-op without nonlinear rows, which is
-all the slice stages; OBBT is not ported yet.
+Port of minotaur_tpu/bnb/presolve.py.  `linear_presolve`,
+`nl_coef_improve` and the unsafe-variable scan are host code as in the
+JAX package (the interval sweeps of `nl_coef_improve` run on the CPU);
+`presolve` runs the FBBT fixpoint, nonlinear rows included, with two
+batched sweeps (one lane) per call on the port's device.  OBBT is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from ..device import F64, resolve_device
 from ..engines.ipm import IPMOptions
 from ..engines.staging import StagedProblem
 from ..ir.problem import Problem
+from ..ops.interval import stage_interval
 from ..utils.types import SolveStatus
 from .step import build_fbbt_sweep
 
@@ -279,12 +280,86 @@ class Presolver:
         return SolveStatus.FINISHED, vlb, vub
 
     def nl_coef_improve(self, vlb: np.ndarray, vub: np.ndarray) -> None:
-        """Coefficient improvement on nonlinear rows: a no-op without
-        them, which is every problem the slice stages."""
-        if len(self.sp.nl_rows):
-            raise NotImplementedError(
-                "nl_coef_improve on nonlinear rows: not yet ported, see "
-                "ROADMAP.md")
+        """Coefficient improvement on NONLINEAR rows (reference:
+        NlPresHandler::coeffImpr_, NlPresHandler.cpp:212): for a
+        one-sided nonlinear row with a binary z in its LINEAR part (and
+        absent from the nonlinear body), the implied activity bound of
+        body-without-z tightens both z's coefficient and the row bound.
+
+        Validity (ub side; lb mirrors): with uu = sup(body | z = 0)
+        from interval arithmetic, replacing (a0, cu) by
+        (a0 + uu - cu, uu) keeps the z=1 constraint IDENTICAL
+        (rest + a0 + uu - cu <= uu  <=>  rest + a0 <= cu) and makes the
+        z=0 constraint valid-by-interval (rest <= uu holds for every
+        box point), while the continuous relaxation tightens.  The
+        reference conditions uu < cu and uu + a0 >= cu restrict to the
+        binds-only-when-z=1 regime (they imply a0 > 0).  The interval
+        sweeps run on the host's CPU (one box, a few rows)."""
+        sp = self.sp
+        if not len(sp.nl_rows):
+            return
+        A, clb, cub = sp.A, sp.clb, sp.cub
+        is_bin = sp.int_mask & (vlb >= -1e-9) & (vub <= 1 + 1e-9) & \
+            (vub - vlb > 0.5)
+        if not is_bin.any():
+            return
+        t = lambda a: torch.as_tensor(a, dtype=F64)  # noqa: E731
+        vlb_j = t(vlb)
+        vub_j = t(vub)
+        for k, r in enumerate(sp.nl_rows):
+            r = int(r)
+            one_ub = np.isfinite(cub[r]) and not np.isfinite(clb[r])
+            one_lb = np.isfinite(clb[r]) and not np.isfinite(cub[r])
+            if not (one_ub or one_lb):
+                continue
+            g = sp.nl_graphs[k]
+            gvars = set(int(v) for v in g.vars_used())
+            glo, ghi = stage_interval(g)(vlb_j, vub_j)
+            glo, ghi = float(glo), float(ghi)
+            with np.errstate(invalid="ignore"):
+                tmin = np.where(A[r] > 0, A[r] * vlb,
+                                np.where(A[r] < 0, A[r] * vub, 0.0))
+                tmax = np.where(A[r] > 0, A[r] * vub,
+                                np.where(A[r] < 0, A[r] * vlb, 0.0))
+            # row-local validity: z need only be absent from THIS row's
+            # nonlinear body (checked below); the global _lin_unsafe
+            # mask is for transforms that reason across rows.  Staged
+            # aux columns (eta etc.) are still excluded.
+            cand = np.zeros(sp.n, dtype=bool)
+            cand[:self.problem.n_vars] = True
+            cand = np.where(is_bin & (np.abs(A[r]) > 1e-12) & cand)[0]
+            for j in cand:
+                if int(j) in gvars:
+                    continue
+                a0 = A[r, j]
+                if one_ub:
+                    uu = float(tmax.sum() - tmax[j]) + ghi
+                    if np.isfinite(uu) and uu < cub[r] - 1e-9 and \
+                            uu + a0 >= cub[r] - 1e-9:
+                        A[r, j] = a0 + uu - cub[r]
+                        cub[r] = uu
+                        self.stats.coefs_improved += 1
+                        break   # one per row per round
+                else:
+                    ll = float(tmin.sum() - tmin[j]) + glo
+                    if np.isfinite(ll) and ll > clb[r] + 1e-9 and \
+                            ll + a0 <= clb[r] + 1e-9:
+                        A[r, j] = a0 + ll - clb[r]
+                        clb[r] = ll
+                        self.stats.coefs_improved += 1
+                        break
+        if self.problem.debug_sol is not None:
+            ds = self.problem.debug_sol
+            if len(ds) == sp.n:
+                for k, r in enumerate(sp.nl_rows):
+                    r = int(r)
+                    gval = float(stage_interval(sp.nl_graphs[k])(
+                        t(ds), t(ds))[0])
+                    act = float(sp.A[r] @ ds) + gval
+                    if act < clb[r] - 1e-5 or act > cub[r] + 1e-5:
+                        raise AssertionError(
+                            "nl coefficient improvement cut off the "
+                            f"debug solution (row {r})")
 
     # ------------------------------------------------------------- FBBT
     def presolve(self, vlb: np.ndarray, vub: np.ndarray

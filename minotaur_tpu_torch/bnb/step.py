@@ -1,6 +1,6 @@
 """The B&B node superstep: FBBT -> IPM solve -> integrality analysis.
 
-Port of minotaur_tpu/bnb/step.py for the LP/QP slice.  One call processes
+Port of minotaur_tpu/bnb/step.py.  One call processes
 a whole batch of nodes, with the lane axis written out, and packs every
 output into ONE (B, 4n+m+10) float64 tensor whose column layout is
 bit-identical to the JAX package's `pack_step_result`, so the host loop
@@ -18,7 +18,7 @@ import torch
 from ..device import F64, resolve_device
 from ..engines.ipm import IPMOptions, build_single_solver, to_device
 from ..engines.staging import StagedProblem
-from ..ops.interval import linear_fbbt
+from ..ops.interval import linear_fbbt, stage_fbbt, stage_interval
 from ..utils.types import EngineStatus
 
 
@@ -50,18 +50,51 @@ class StepOptions:
 def build_fbbt_sweep(sp: StagedProblem, int_tol: float = 1e-6,
                      device="cuda") -> Callable:
     """Returns the batched sweep fbbt_round(A, clb, cub, vlb, vub, infeas)
-    -> (vlb, vub, infeas) on (B, n) boxes: one linear-row pass plus
-    integer rounding (the LP part of the JAX sweep)."""
-    if len(sp.nl_rows):
-        raise NotImplementedError(
-            "FBBT through nonlinear rows: not yet ported, see ROADMAP.md")
+    -> (vlb, vub, infeas) on (B, n) boxes: one vectorized linear-row pass
+    + per-graph interval projection + integer rounding.  Used by the node
+    superstep and the root Presolver.  Each graph's rules run as torch
+    ops on all lanes at once, node by node (the JAX package traces them
+    once into one fused program)."""
+    n = sp.n
     dev = resolve_device(device)
     int_mask = torch.as_tensor(sp.int_mask, dtype=torch.bool, device=dev)
     has_ints = bool(sp.int_mask.any())
 
+    # staged FBBT for nonlinear rows (quadratic rows have graphs too)
+    nl_fbbt = [stage_fbbt(g, n) for g in sp.nl_graphs]
+    nl_fwd = [stage_interval(g) for g in sp.nl_graphs]
+    nl_rows = [int(r) for r in sp.nl_rows]
+    rows_t = torch.as_tensor(nl_rows, dtype=torch.long, device=dev)
+
     def fbbt_round(A, clb, cub, vlb, vub, infeas):
-        vlb, vub, bad = linear_fbbt(A, clb, cub, vlb, vub)
+        B = vlb.shape[0]
+        # forward intervals of nonlinear bodies -> tightened linear ranges
+        if nl_rows:
+            fwd = [f(vlb, vub) for f in nl_fwd]
+            gmin = torch.stack([g[0] for g in fwd], dim=1)
+            gmax = torch.stack([g[1] for g in fwd], dim=1)
+            rlo = clb.expand(B, -1).index_add(1, rows_t, -gmax)
+            rhi = cub.expand(B, -1).index_add(1, rows_t, -gmin)
+            rlo = torch.where(torch.isnan(rlo), -float("inf"), rlo)
+            rhi = torch.where(torch.isnan(rhi), float("inf"), rhi)
+        else:
+            rlo, rhi = clb, cub
+        vlb, vub, bad = linear_fbbt(A, rlo, rhi, vlb, vub)
         infeas = infeas | bad
+
+        # nonlinear rows: impose [clb - linpart, cub - linpart] on the DAG
+        if nl_rows:
+            pos = torch.clamp(A, min=0.0)
+            neg = torch.clamp(A, max=0.0)
+            lmin = vlb @ pos.T + vub @ neg.T
+            lmax = vub @ pos.T + vlb @ neg.T
+            for f, r in zip(nl_fbbt, nl_rows):
+                glo = clb[r] - lmax[:, r]
+                ghi = cub[r] - lmin[:, r]
+                glo = torch.where(torch.isnan(glo), -float("inf"), glo)
+                ghi = torch.where(torch.isnan(ghi), float("inf"), ghi)
+                vlb, vub, bad = f(vlb, vub, glo, ghi)
+                infeas = infeas | bad
         # integer rounding (reference: LinearHandler intRounding :415)
         if has_ints:
             vlb = torch.where(int_mask, torch.ceil(vlb - int_tol), vlb)
@@ -166,7 +199,7 @@ def build_node_step(sp: StagedProblem, opts: StepOptions = StepOptions(),
         res = step_b(to_device(A, dev).reshape(m, n), to_device(clb, dev),
                      to_device(cub, dev), to_device(vlb_b, dev),
                      to_device(vub_b, dev), to_device(x0_b, dev),
-                     to_device(y0_b, dev).reshape(-1, m))
+                     to_device(y0_b, dev).reshape(len(vlb_b), m))
         return pack_step_result(res)
 
     def unpack(packed) -> StepResult:

@@ -1,12 +1,11 @@
-"""Batched primal-dual interior-point engine, LP/QP branch.
+"""Batched primal-dual interior-point engine (LP / QP / convex NLP).
 
-Port of minotaur_tpu/engines/ipm.py for problems whose relaxation is an
-LP or a convex QP (everything not under `has_nl` there).  The JAX engine
-is a one-lane solver vmapped over lanes; here every function takes the
-lane axis explicitly: bounds, starts and iterates are (B, .) tensors and
-the problem data (A, c, Q) is shared.  The math, the two-phase drive, the
-certificates and the status machine follow the JAX code line by line;
-its docstrings explain the derivations.
+Port of minotaur_tpu/engines/ipm.py.  The JAX engine is a one-lane solver
+vmapped over lanes; here every function takes the lane axis explicitly:
+bounds, starts and iterates are (B, .) tensors and the problem data (A,
+c, Q) is shared.  The math, the two-phase drive, the certificates and the
+status machine follow the JAX code line by line; its docstrings explain
+the derivations.
 
 `vmap` of a `while_loop` keeps a finished lane's carry frozen while the
 other lanes iterate.  `_while` does the same with a per-lane `active`
@@ -14,16 +13,25 @@ mask that gates every state update (iterate, k, best_*, stall, nu).  The
 host reads `active.any()` once per iteration, so each iteration costs
 one device-to-host sync.
 
+Nonlinear rows or objective (`has_nl`) take the JAX package's NL branch:
+the gradient, the Jacobian of the nonlinear rows and the Hessian of the
+Lagrangian come from `torch.func` (`grad`, `jacfwd`, `hessian`, each
+vmapped over lanes) applied to the staged expression code; the factors
+are float64; every iteration runs a merit line search over a fixed scale
+ladder; stalled and NaN-stopped lanes restart; lanes plateauing at the
+acceptable level stop; the dual bound is the reference's uncertified
+trust margin around a converged objective.
+
 The two TPU kernels of this path are `ops/spd_inverse.py` (factorize +
 explicit inverse, once per iteration per condensed matrix) and
 `ops/spd_solve.py` (every direction solve through that inverse).  On a
 CUDA device they run as hand-written CUDA kernels; on the CPU as their
 plain PyTorch versions.
 
-Out of the slice (raise NotImplementedError): nonlinear rows or
-objective, `light_phase1`, `tail_corr_f32`, `gondzio_correctors > 0`.
-`use_pallas` is accepted and has no effect: the port always runs its own
-kernel (on the JAX CPU backend that flag is inert too).
+Out of the port (raise NotImplementedError): `light_phase1`,
+`tail_corr_f32`, `gondzio_correctors > 0`.  `use_pallas` is accepted and
+has no effect: the port always runs its own kernel (on the JAX CPU
+backend that flag is inert too).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.func import grad, hessian, jacfwd, vmap
 
 from ..device import F32, F64, check_fp32_matmul, resolve_device
 from ..ops.spd_inverse import spd_inverse
@@ -75,7 +84,8 @@ class IPMOptions:
     # assemble the condensed matrix in the factor dtype
     light_assembly: bool = True
     affine_kkt_rounds: Optional[int] = 1
-    acceptable_tol: float = 1e-6   # NL only (not yet ported)
+    # NL "solved to acceptable level" threshold (Ipopt acceptable_tol)
+    acceptable_tol: float = 1e-6
     # Gondzio centrality correctors: not yet ported
     gondzio_correctors: int = 0
 
@@ -95,9 +105,7 @@ def _not_ported(what: str):
 
 
 def check_slice(sp: StagedProblem, opts: IPMOptions) -> None:
-    """Raise for inputs or options outside the ported LP/QP slice."""
-    if len(sp.nl_rows) or sp.obj_nl is not None or sp.con_nl is not None:
-        raise _not_ported("nonlinear rows / nonlinear objective (IPM NL path)")
+    """Raise for options the port does not have yet."""
     if opts.light_phase1:
         raise _not_ported("light_phase1")
     if opts.tail_corr_f32:
@@ -229,9 +237,15 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
     check_fp32_matmul(dev)
 
     n, m = sp.n, sp.m
+    has_nl = bool(len(sp.nl_rows)) or sp.obj_nl is not None
     has_q = sp.Qobj is not None
-    is_lp = not has_q
+    is_lp = not has_nl and not has_q
     condense_x = (not is_lp) or (m >= n)
+    # f32 factorization is restricted to LP/QP paths: nonconvex NLP
+    # Lagrangian Hessians change every iteration and the f32 phase can
+    # poison the multipliers faster than refinement recovers
+    if has_nl and opts.factor_f32:
+        opts = dataclasses.replace(opts, factor_f32=False)
     eq_rows_np = np.where(np.isfinite(sp.clb) & np.isfinite(sp.cub) &
                           (np.abs(sp.cub - sp.clb) <= 1e-12))[0]
     m_eq = len(eq_rows_np)
@@ -246,7 +260,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
     Qsym32 = Qsym.to(F32) if has_q else None
 
     q_psd = False
-    if has_q:
+    if has_q and not has_nl:
         _w, _V = np.linalg.eigh(0.5 * (sp.Qobj + sp.Qobj.T))
         if _w.min() >= -1e-9:
             q_psd = True
@@ -257,14 +271,55 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             qV_sp = _split64(q_eigV)
     PIN = 1e10 if condense_x else 1e16
 
+    obj_nl = sp.obj_nl
+    con_nl = sp.con_nl
+    nl_rows = torch.as_tensor(sp.nl_rows, dtype=torch.long, device=dev)
+
+    # ---------------- problem callables (lane-batched) -----------------
     def f_obj(x, c):
         v = (x * c).sum(dim=1)
         if has_q:
             v = v + ((x @ Q_const.T) * x).sum(dim=1)
+        if obj_nl is not None:
+            v = v + obj_nl(x)
         return v
 
+    grad_obj_nl = vmap(grad(obj_nl)) if obj_nl is not None else None
+
     def grad_f(x, c):
-        return c + x @ Qsym if has_q else c + torch.zeros_like(x)
+        g = c + x @ Qsym if has_q else c + torch.zeros_like(x)
+        if grad_obj_nl is not None:
+            g = g + grad_obj_nl(x)
+        return g
+
+    def g_con(A, x):
+        v = x @ A.T
+        if con_nl is not None:
+            v = v.index_add(1, nl_rows, con_nl(x))
+        return v
+
+    if con_nl is not None:
+        jac_nl = vmap(jacfwd(con_nl))
+
+        def jac(A, x):
+            return A.expand(x.shape[0], m, n).index_add(1, nl_rows, jac_nl(x))
+    else:
+        def jac(A, x):
+            return A.expand(x.shape[0], m, n)
+
+    if has_nl:
+        def lag_nl(x, y):
+            v = obj_nl(x) if obj_nl is not None else 0.0
+            if con_nl is not None:
+                v = v + y.index_select(-1, nl_rows) @ con_nl(x)
+            return v
+        hess_lag_nl = vmap(hessian(lag_nl, argnums=0))
+
+    def hess_W(x, y):
+        W = hess_lag_nl(x, y)
+        if has_q:
+            W = W + 2.0 * Q_const
+        return W
 
     def solve_impl(A, clb, cub, vlb, vub, x0, c_in, y0=None):
         B = vlb.shape[0]
@@ -291,7 +346,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             return torch.where(fixed, lz, z)
 
         x_init = clampz(torch.cat([x0, zeros_bm], dim=1))[:, :n]
-        s_init = clampz(torch.cat([zeros_bn, x_init @ A.T], dim=1))[:, n:]
+        s_init = clampz(torch.cat([zeros_bn, g_con(A, x_init)], dim=1))[:, n:]
         z0 = torch.cat([x_init, s_init], dim=1)
         if y0 is None:
             zl0 = fin_l.to(F64)
@@ -300,7 +355,9 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
         else:
             # dual warm start (see the JAX code)
             y0 = torch.where(torch.isfinite(y0), y0, 0.0)
-            rz = torch.cat([grad_f(x_init, c_in) + y0 @ A, -y0], dim=1)
+            J0 = jac(A, x_init)
+            rz = torch.cat([grad_f(x_init, c_in) +
+                            (y0[:, None, :] @ J0)[:, 0], -y0], dim=1)
             zl0 = torch.where(fin_l, torch.clamp(rz, 1e-2, 1e8), 0.0)
             zu0 = torch.where(fin_u, torch.clamp(zl0 - rz, 1e-2, 1e8), 0.0)
 
@@ -322,6 +379,8 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
         abs_cub = torch.where(fin_cub, cub.abs(), 0.0)
 
         def residuals(z, y, zl, zu):
+            if has_nl:
+                return residuals_nl(z, y, zl, zu)[:3]
             x, s = z[:, :n], z[:, n:]
             rd_x = grad_f(x, c_in) + y @ A - zl[:, :n] + zu[:, :n]
             rd_s = -y - zl[:, n:] + zu[:, n:]
@@ -329,6 +388,21 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             rd_s = torch.where(fixed_s, 0.0, rd_s)
             rp = x @ A.T - s
             return rd_x, rd_s, rp
+
+        def residuals_nl(z, y, zl, zu):
+            """NL residuals at the fresh Jacobian J (also returned: the
+            step assembles its matrix from it)."""
+            x, s = z[:, :n], z[:, n:]
+            J = jac(A, x)
+            rd_x = grad_f(x, c_in) + (y[:, None, :] @ J)[:, 0] - \
+                zl[:, :n] + zu[:, :n]
+            rd_s = -y - zl[:, n:] + zu[:, n:]
+            # fixed coordinates carry an implicit free multiplier that
+            # absorbs their dual residual exactly
+            rd_x = torch.where(fixed_x, 0.0, rd_x)
+            rd_s = torch.where(fixed_s, 0.0, rd_s)
+            rp = g_con(A, x) - s
+            return rd_x, rd_s, rp, J
 
         def kkt_error(z, y, zl, zu, rd_x, rd_s, rp):
             dl, du = distances(z)
@@ -441,7 +515,8 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
         def make_step(use_f32, sopts=opts, ratchet=True):
             """One IPM iteration on every lane (see the JAX make_step).
             `use_f32` picks the factor dtype; the iteration arithmetic is
-            f64 (the light f32 phase is not ported)."""
+            f64 (the light f32 phase is not ported).  NL steps always
+            factor in f64 (build_single_solver turns factor_f32 off)."""
             fdt = F32 if use_f32 else F64
             adt = fdt if sopts.light_assembly else F64
             A_a = A32 if adt == F32 else A
@@ -451,7 +526,15 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                 (z, y, zl, zu, k, err, mu_prev, best_db, best_y, rvec, nu,
                  stall, bz, by, bzl, bzu, berr, bmu) = state
                 dl, du = distances(z)
-                rd_x, rd_s, rp = rvec[:, :n], rvec[:, n:n + m], rvec[:, n + m:]
+                if has_nl:
+                    # NL residuals need the fresh Jacobian/gradient anyway,
+                    # so nothing is saved by carrying them
+                    rd_x, rd_s, rp, J = residuals_nl(z, y, zl, zu)
+                else:
+                    # LP/QP residuals at the current point are the previous
+                    # iteration's trial residuals, carried
+                    rd_x, rd_s, rp = rvec[:, :n], rvec[:, n:n + m], \
+                        rvec[:, n + m:]
                 comp = torch.where(fin_l, dl * zl, 0.0).sum(dim=1) + \
                     torch.where(fin_u, du * zu, 0.0).sum(dim=1)
                 mu = comp / nb
@@ -462,7 +545,53 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                 Dx_diag = torch.where(fixed_x, 1.0, Dz[:, :n] + sopts.reg_primal)
                 Ds = Dz[:, n:] + sopts.reg_dual
 
-                if condense_x:
+                if condense_x and has_nl:
+                    # x-space normal equations Mx = W + Dx + J_in' Ds J_in
+                    # per lane, with the equality rows' Schur block; fixed
+                    # variables exactly eliminated (column-masked J, masked
+                    # W, unit diagonal, zero rhs)
+                    ineq_w = torch.where(eq_mask, 0.0, Ds) if m_eq else Ds
+                    Jm = torch.where(fixed_x[:, None, :], 0.0, J)
+                    W = hess_W(z[:, :n], y)
+                    wmask = (~fixed_x)[:, :, None] & (~fixed_x)[:, None, :]
+                    W = torch.where(wmask, W, 0.0)
+                    Mx = torch.diag_embed(Dx_diag) + \
+                        torch.matmul(Jm.transpose(1, 2) * ineq_w[:, None, :],
+                                     Jm) + W
+                    solve_mx, _ = _make_spd_solver(Mx, sopts, use_f32,
+                                                   out_dtype=F64)
+                    if m_eq:
+                        Je = Jm[:, eq_rows]
+                        MeJ = solve_mx(Je.transpose(1, 2))
+                        S = torch.matmul(Je, MeJ) + \
+                            1e-10 * torch.eye(m_eq, dtype=F64, device=dev)
+                        solve_s, _ = _make_spd_solver(S, sopts, use_f32,
+                                                      out_dtype=F64)
+
+                    def raw_xyz(rhs1, rhs2, rhs3):
+                        rx = rhs1 + ((ineq_w * rhs3 + rhs2)[:, None, :] @
+                                     Jm)[:, 0]
+                        rx = torch.where(fixed_x, 0.0, rx)
+                        if m_eq:
+                            t = solve_mx(rx)
+                            dy_eq = solve_s(
+                                torch.matmul(Je, t[:, :, None])[:, :, 0] -
+                                rhs3[:, eq_rows])
+                            dx = t - torch.matmul(MeJ, dy_eq[:, :, None])[:, :, 0]
+                        else:
+                            dx = solve_mx(rx)
+                        dx = torch.where(fixed_x, 0.0, dx)
+                        ds = torch.matmul(J, dx[:, :, None])[:, :, 0] - rhs3
+                        dy = Ds * ds - rhs2
+                        if m_eq:
+                            ds = torch.where(eq_mask, 0.0, ds)
+                            dy = dy.index_copy(1, eq_rows, dy_eq)
+                        return dx, ds, dy
+
+                    def solve_xyz(rhs1, rhs2, rhs3, rounds):
+                        # f64 factors: no block-level defect correction
+                        return raw_xyz(rhs1, rhs2, rhs3)
+                elif condense_x:
                     # x-space normal equations over inequality rows plus
                     # an explicit Schur block for equality rows; fixed
                     # variables eliminated through the factored mask
@@ -597,19 +726,55 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                                    _max_step(du, -dz_c, sopts.tau, fin_u))
                 ad = torch.minimum(_max_step(zl, dzl_c, sopts.tau, fin_l),
                                    _max_step(zu, dzu_c, sopts.tau, fin_u))
+                if has_nl:
+                    ap = ad = torch.minimum(ap, ad)
+                mu_t = sigma * mu
+                # exact-penalty weight: monotone non-decreasing across
+                # iterations (carried in `nu`)
                 nu_pen = torch.maximum(nu, 10.0 * (1.0 + _amax0(y.abs())))
 
-                # full step (the LP/QP path has no line search)
-                z_new = z + ap[:, None] * dz_c
-                y_new = y + ad[:, None] * dy_c
-                zl_new = torch.where(
-                    fin_l, torch.clamp(zl + ad[:, None] * dzl_c, min=1e-300), 0.0)
-                zu_new = torch.where(
-                    fin_u, torch.clamp(zu + ad[:, None] * dzu_c, min=1e-300), 0.0)
-                rd_xt, rd_st, rpt = residuals(z_new, y_new, zl_new, zu_new)
-                err2, mu2 = kkt_error(z_new, y_new, zl_new, zu_new,
-                                      rd_xt, rd_st, rpt)
-                rvec2 = torch.cat([rd_xt, rd_st, rpt], dim=1)
+                def trial(scale):
+                    zt = z + (scale * ap)[:, None] * dz_c
+                    yt = y + (scale * ad)[:, None] * dy_c
+                    zlt = torch.where(fin_l, torch.clamp(
+                        zl + (scale * ad)[:, None] * dzl_c, min=1e-300), 0.0)
+                    zut = torch.where(fin_u, torch.clamp(
+                        zu + (scale * ad)[:, None] * dzu_c, min=1e-300), 0.0)
+                    rd_xt, rd_st, rpt = residuals(zt, yt, zlt, zut)
+                    errt, mut = kkt_error(zt, yt, zlt, zut, rd_xt, rd_st, rpt)
+                    merit = None
+                    if has_nl:
+                        # exact-penalty merit: barrier objective + nu *
+                        # primal infeasibility (see the JAX trial)
+                        dlt, dut = distances(zt)
+                        bar = -mu_t * (
+                            torch.where(fin_l, torch.log(dlt), 0.0).sum(dim=1) +
+                            torch.where(fin_u, torch.log(dut), 0.0).sum(dim=1))
+                        theta = rpt.abs().sum(dim=1)
+                        merit = f_obj(zt[:, :n], c_in) + bar + nu_pen * theta
+                    rvt = torch.cat([rd_xt, rd_st, rpt], dim=1)
+                    return (zt, yt, zlt, zut, errt, mut, merit, rvt)
+
+                if has_nl:
+                    # merit line search over a fixed scale ladder: the
+                    # largest scale that decreases the merit, the KKT
+                    # error, or (while infeasible) the primal
+                    # infeasibility by >= 10%; else the smallest step
+                    theta0 = rp.abs().sum(dim=1)
+                    m0 = trial(0.0)[-2]
+                    cands = [trial(sc) for sc in (0.01, 0.05, 0.25, 1.0)]
+                    sel = cands[0]
+                    for cand in cands[1:]:
+                        tht = cand[-1][:, n + m:].abs().sum(dim=1)
+                        acc = ((cand[-2] < m0 - 1e-12) | (cand[4] < err) |
+                               ((theta0 > 1e-6) & (tht < 0.9 * theta0))) & \
+                            torch.isfinite(cand[-2])
+                        sel = tuple(_sel(acc, a, b) for a, b in zip(cand, sel))
+                    z_new, y_new, zl_new, zu_new, err2, mu2, _, rvec2 = sel
+                else:
+                    # full step (the LP/QP path has no line search)
+                    (z_new, y_new, zl_new, zu_new, err2, mu2, _,
+                     rvec2) = trial(1.0)
 
                 # NaN guard: keep the previous iterate and stop (err -1)
                 ok = torch.isfinite(err2) & torch.isfinite(z_new).all(dim=1)
@@ -628,9 +793,10 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     db_bet = db_new > best_db
                     best_db = torch.where(db_bet, db_new, best_db)
                     best_y = _sel(db_bet, y_new, best_y)
-                # certified Farkas exit (err = -2 sentinel), confirmed in
-                # f64 after the loop
-                err2 = torch.where(farkas_sp(y_new), -2.0, err2)
+                if not has_nl:
+                    # certified Farkas exit (err = -2 sentinel), confirmed
+                    # in f64 after the loop
+                    err2 = torch.where(farkas_sp(y_new), -2.0, err2)
                 # best-state ratchet
                 better = (err2 >= 0.0) & (err2 < berr)
                 bz2, by2 = _sel(better, z_new, bz), _sel(better, y_new, by)
@@ -640,6 +806,28 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                 nu2 = torch.maximum(nu_pen, torch.clamp(
                     10.0 * (1.0 + _amax0(y_new.abs())), max=1e10))
                 stall2 = torch.where(better, torch.zeros_like(stall), stall + 1)
+                if has_nl:
+                    # lane restart (Ipopt's restoration fallback, see the
+                    # JAX step): a lane whose best KKT error has not
+                    # improved for 25 iterations, or that stopped on a NaN,
+                    # re-centers between its best iterate and the box
+                    # midpoint with reset multipliers.  Only the iterate is
+                    # reset; the best-state ratchet keeps everything sound
+                    do_rst = ((stall2 >= 25) & (berr2 > 1e-3)) | \
+                        (err2 == -1.0)
+                    mid = torch.where(fin_l & fin_u, 0.5 * (lz + uz),
+                                      torch.where(fin_l, lz + 1.0,
+                                                  torch.where(fin_u, uz - 1.0,
+                                                              0.0)))
+                    z_rst = clampz(0.5 * bz2 + 0.5 * mid)
+                    z_new = _sel(do_rst, z_rst, z_new)
+                    y_new = _sel(do_rst, torch.zeros_like(y_new), y_new)
+                    zl_new = _sel(do_rst, fin_l.to(F64), zl_new)
+                    zu_new = _sel(do_rst, fin_u.to(F64), zu_new)
+                    err2 = torch.where(do_rst, 1e6, err2)
+                    mu2 = torch.where(do_rst, 1.0, mu2)
+                    stall2 = torch.where(do_rst, torch.zeros_like(stall2),
+                                         stall2)
                 return (z_new, y_new, zl_new, zu_new, k + 1, err2, mu2,
                         best_db, best_y, rvec2, nu2, stall2,
                         bz2, by2, bzl2, bzu2, berr2, bmu2)
@@ -657,7 +845,13 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
         def cond_to(tol_target, k_cap):
             def cond(state):
                 k, err, berr = state[4], state[5], state[-2]
-                return (k < k_cap) & (berr > tol_target) & (err >= 0.0)
+                go = (k < k_cap) & (berr > tol_target) & (err >= 0.0)
+                if has_nl:
+                    # NL lanes plateauing at the acceptable level stop
+                    # (Ipopt's acceptable_tol / acceptable_iter)
+                    go = go & ~((berr <= opts.acceptable_tol) &
+                                (state[11] >= 10))
+                return go
             return cond
 
         eff_tol = (max(opts.tol, opts.tail_tol)
@@ -736,18 +930,34 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             cert_db = torch.maximum(qp_cert_bound(best_y), qp_cert_bound(y))
             dual_bound = torch.maximum(cert_db, trust)
         else:
+            # convex NLP: trust the converged KKT point with a tolerance
+            # margin (the reference trusts Ipopt the same way)
             cert_db = full(-_BIG)
             dual_bound = trust
 
         prim_err = _amax0(rpf.abs())
         empty_box = (lz > uz + 1e-12).any(dim=1)
-        farkas = (err == -2.0) & farkas_infeasible(y, 1e-5)
+        farkas = err == -2.0
+        if not has_nl:
+            farkas = farkas & farkas_infeasible(y, 1e-5)
         converged = (err <= eff_tol) & (err >= 0.0) & ~empty_box
-        gap_closed = cert_db >= obj - eff_tol * (1.0 + obj.abs())
-        cert_opt = gap_closed & (prim_err <= 1e-6) & (err >= 0.0) & ~empty_box
-        converged = converged | cert_opt
-        # LP/QP: infeasibility claims REQUIRE the Farkas certificate
-        heur_infeas = dual_bound > 1e15
+        if has_nl:
+            # acceptable-level acceptance: scaled KKT error at the
+            # acceptable threshold AND primal feasible
+            converged = converged | (
+                (err <= opts.acceptable_tol) & (err >= 0.0) &
+                (prim_err <= 1e-6) & ~empty_box)
+            # no certificate exists for nonlinear rows: the mu-collapse
+            # heuristic (the reference trusts Ipopt's infeasibility)
+            heur_infeas = (~converged) & (prim_err > 1e-6) & \
+                (mu < opts.infeas_mu)
+        else:
+            gap_closed = cert_db >= obj - eff_tol * (1.0 + obj.abs())
+            cert_opt = gap_closed & (prim_err <= 1e-6) & (err >= 0.0) & \
+                ~empty_box
+            converged = converged | cert_opt
+            # LP/QP: infeasibility claims REQUIRE the Farkas certificate
+            heur_infeas = dual_bound > 1e15
         infeasible = empty_box | farkas | heur_infeas
         dual_bound = torch.where(empty_box | farkas, _BIG, dual_bound)
         status = torch.where(
@@ -783,13 +993,23 @@ def build_batch_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
     solve_one = build_single_solver(sp, opts, device)
     dev = solve_one.device
 
+    has_nl = bool(len(sp.nl_rows)) or sp.obj_nl is not None
+
     def dispatch(A, clb, cub, vlb_b, vub_b, x0_b=None):
         vlb_b = to_device(vlb_b, dev)
+        vub_b = to_device(vub_b, dev)
         if x0_b is None:
-            x0_b = torch.zeros((vlb_b.shape[0], n), dtype=F64, device=dev)
+            if has_nl:
+                # cold NL starts use the box midpoint: zero starts land
+                # nonconvex models in infeasible merit attractors
+                lo = torch.where(torch.isfinite(vlb_b), vlb_b, -1.0)
+                hi = torch.where(torch.isfinite(vub_b), vub_b, 1.0)
+                x0_b = 0.5 * (lo + hi)
+            else:
+                x0_b = torch.zeros((vlb_b.shape[0], n), dtype=F64,
+                                   device=dev)
         r = solve_one(to_device(A, dev).reshape(m, n), to_device(clb, dev),
-                      to_device(cub, dev), vlb_b, to_device(vub_b, dev),
-                      to_device(x0_b, dev))
+                      to_device(cub, dev), vlb_b, vub_b, to_device(x0_b, dev))
         # certified bounds are never downcast: the packed layout is f64
         if r.x.dtype != F64 or r.dual_bound.dtype != F64:
             raise TypeError("build_batch_solver: packed result must be "

@@ -67,7 +67,7 @@ def test_bnb_ub_matches_jax():
 @pytest.mark.parametrize("opt,val", [("divheur", 1), ("obbt", 1),
                                      ("device_tree", 1), ("brancher", "weak"),
                                      ("nodeproc", "qpd"), ("dtype", "f32"),
-                                     ("presolve_subst", 1), ("msheur", 1),
+                                     ("persp_ref", 1), ("msheur", 1),
                                      ("checkpoint_file", "ckpt.bin")])
 def test_out_of_slice_options_raise(opt, val):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -76,9 +76,14 @@ def test_out_of_slice_options_raise(opt, val):
 
 
 def test_nonlinear_rows_raise():
+    """Nonlinear rows are ported (tests/test_torch_bnb_nl.py); what still
+    raises on them is the QPD node processor and the perspective
+    reformulation."""
     from minotaur_tpu_torch.ir.functions import Function, QuadraticFunction
     p = correlated_knapsack(4, 0)
     p.new_constraint(Function(qf=QuadraticFunction({(0, 0): 1.0})),
                      -np.inf, 1.0, "quad")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        BranchAndBound(p, _env(), device="cpu")
+    assert len(BranchAndBound(p, _env(), device="cpu").sp.nl_rows) == 1
+    for opt, val in (("nodeproc", "qpd"), ("persp_ref", 1)):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            BranchAndBound(p, _env(**{opt: val}), device="cpu")

@@ -7,7 +7,9 @@ This file imports no jax, so on a machine without it the tests run with
 
 Tolerances: K1 at 5e-5 (f32; the spec residual of tests/test_pallas_kkt.py)
 and 1e-12 (f64) relative to max|Minv|; K2 at 1e-5 (f32 factor, the
-spec of tests/test_pallas.py) and 1e-12 (f64) relative to max|x|.
+spec of tests/test_pallas.py) and 1e-12 (f64) relative to max|x|.  The
+NL path's shapes (K1 at k=1024 f64, K2 at (64, 1024) f64 refine 3) are
+held to the f64 tolerances.
 """
 
 import numpy as np
@@ -135,6 +137,37 @@ def test_spd_solve_main_path_dtypes_one_launch(cuda):
     torch.cuda.synchronize()
     assert spd_solve.launches == n0 + 1
     assert x.dtype == F64 and x.shape == (64, 300)
+
+
+@pytest.mark.parametrize("kernel", ["spd_inverse", "spd_solve"])
+def test_nl_shapes_f64(cuda, kernel):
+    """The NL path's shapes (normcon(1024) at B=64): every factorization
+    float64, every solve refined 3 rounds.  K1 at (64, 1024, 1024), whose
+    f64 panel lives in the global buffer; K2 at (64, 1024) refine 3."""
+    B, k = 64, 1024
+    if kernel == "spd_inverse":
+        g = torch.Generator(device=cuda).manual_seed(5)
+        A = torch.randn((B, k, k), generator=g, dtype=F64, device=cuda)
+        ms = A @ A.transpose(1, 2) / k + 2.0 * torch.eye(k, dtype=F64,
+                                                         device=cuda)
+        del A
+        n0 = spd_inverse.launches
+        minv, flag = spd_inverse(ms)
+        torch.cuda.synchronize()
+        assert spd_inverse.launches == n0 + 1
+        pminv, pflag = spd_inverse_plain(ms)
+        assert torch.equal(flag, pflag) and bool((flag == 0).all())
+        assert (minv - pminv).abs().max() <= 1e-12 * pminv.abs().max()
+    else:
+        M, dinv, shift, _, minv64 = _solve_setup(cuda, B, k)
+        r = torch.randn((B, k), dtype=F64, device=cuda)
+        n0 = spd_solve.launches
+        x = spd_solve(minv64, M, dinv, shift, r, 3, F64)
+        torch.cuda.synchronize()
+        assert spd_solve.launches == n0 + 1
+        px = spd_solve_plain(minv64, M, dinv, shift, r, 3, F64)
+        assert (x - px).abs().max() <= 1e-12 * px.abs().max()
+        _SOLVE_INPUTS.pop((B, k))
 
 
 def test_wrappers_raise_on_unsupported_input(cuda):

@@ -1,8 +1,8 @@
 """The port never imports jax or the JAX package.
 
 Checked in a fresh interpreter (this test process has jax loaded by
-conftest): import every module of minotaur_tpu_torch, then look at
-sys.modules.
+conftest): import every module of minotaur_tpu_torch (the NL path, the
+readers and the `mbnb` CLI included), then look at sys.modules.
 """
 
 import os
@@ -23,7 +23,14 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
              or k == "minotaur_tpu" or k.startswith("minotaur_tpu."))
 print(len(names), "modules")
-assert len(names) >= 20, names
+assert len(names) >= 40, names
+# the NL path and the CLI (ROADMAP.md Queue 1) are among them
+for name in ("ops.stage", "ops.interval", "engines.staging", "convert",
+             "bnb.nlpres", "bnb.substitute", "bnb.bin2lin",
+             "models.convex_suite", "io.nl_reader", "io.mps_reader",
+             "io.sol_writer", "io.nl_writer", "io.gams_reader",
+             "solvers.base", "solvers.mbnb"):
+    assert "minotaur_tpu_torch." + name in names, name
 assert not bad, bad
 """
 
