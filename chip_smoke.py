@@ -20,7 +20,15 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
      NL FBBT round; BranchAndBound on four NL suite rows against their
      oracles; the full-width normcon(1024, 7) search at B=64 (capped),
      with the kernels' launch counts; and the `mbnb` CLI on a .nl file
-     written by the port's nl_writer.
+     written by the port's nl_writer;
+  8. the QG/OA path: QGBranchAndBound on st_e14a and st_e14b and
+     OABranchAndBound on st_e14a against their oracles (the CPU root
+     anchor must not run); K1 in f32 at the QG master's shape
+     (64, 1024, 1024) and K2 at (64, 1024) with the master's refine count
+     against their plain versions; the full-width QG run on
+     normcon(1024, 7) at B=64 (capped), sound, with its cut and NLP
+     counts, the wall seconds of its parts and the kernels' launch
+     counts; and the `mqg` CLI on st_e14a.nl.
 
 Every phase prints one line; any failed check raises and the process
 exits non-zero without the final line.  The next-to-last line is the
@@ -45,6 +53,9 @@ DEVICE = "cuda"
 # search capped at node_cap nodes and time_cap seconds
 NL = dict(n=1024, seed=7, B=64, node_cap=512, time_cap=150.0)
 NL_ROWS = ("normcon_20a", "expbudget_8a", "ex1223_a", "batchdes_a")
+# phase 8: QGBranchAndBound on normcon(n, seed) at B lanes (the sweep's
+# mqg row normcon_1024a), capped at node_cap nodes and time_cap seconds
+QG = dict(n=1024, seed=7, B=64, node_cap=512, time_cap=180.0)
 
 
 class CheckFailed(AssertionError):
@@ -752,6 +763,298 @@ def phase_cli(record):
         f"{objs[0]:.10g} (oracle {opt:.10g}), .sol '{head}'")
 
 
+class WallSplit:
+    """Wall seconds of named methods of one solver, by label.  A method
+    wrapped with `context=True` (root, dives, pump, oracle) also marks
+    its calls as inside a context; `top=True` labels count only outside
+    every context (the main loop's supersteps, not a dive's)."""
+
+    def __init__(self):
+        self.s = {}
+        self.calls = {}
+        self.stack = []                 # the open contexts' labels
+
+    def wrap(self, owner, attr, label, context=False, top=False):
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kw):
+            if top and self.stack:
+                return fn(*args, **kw)
+            if context:
+                self.stack.append(label)
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.s[label] = self.s.get(label, 0.0) + \
+                    time.monotonic() - t0
+                self.calls[label] = self.calls.get(label, 0) + 1
+                if context:
+                    self.stack.pop()
+
+        for name in ("dispatch", "unpack"):     # a batch solver's surface
+            if hasattr(fn, name):
+                setattr(timed, name, getattr(fn, name))
+        setattr(owner, attr, timed)
+        return fn
+
+
+def qg_env(**opts):
+    from minotaur_tpu_torch.utils.environment import Environment
+    env = Environment()
+    for key, v in dict(log_level=1, **opts).items():
+        env.set_option(key, v)
+    return env
+
+
+def watch_anchor(bab):
+    """Count calls of bab's CPU f64 root anchor."""
+    runs = []
+    fn = bab._cpu_root_anchor
+
+    def counted():
+        runs.append(1)
+        return fn()
+
+    bab._cpu_root_anchor = counted
+    return runs
+
+
+def phase_qg_small(record):
+    """QG on st_e14a and st_e14b, OA on st_e14a, against the suite's
+    exact oracles; the CPU root anchor must not run."""
+    from minotaur_tpu_torch.bnb.oa import OABranchAndBound
+    from minotaur_tpu_torch.bnb.qg import QGBranchAndBound
+    from minotaur_tpu_torch.models.convex_suite import SUITE
+    from minotaur_tpu_torch.utils.types import SolveStatus
+    for cls, name in ((QGBranchAndBound, "st_e14a"),
+                      (QGBranchAndBound, "st_e14b"),
+                      (OABranchAndBound, "st_e14a")):
+        gen, oracle, _ = SUITE[name]
+        opt = oracle()
+        tol = 1e-6 * (1 + abs(opt))
+        t0 = time.monotonic()
+        bab = cls(gen(), qg_env(node_batch=16), device=DEVICE)
+        anchor = watch_anchor(bab)
+        st = bab.solve()
+        dt = time.monotonic() - t0
+        tag = f"{cls.__name__} {name}"
+        check(abs(bab.ub - opt) <= tol, f"{tag}: ub {bab.ub} vs oracle {opt}")
+        check(bab.lb <= opt + tol, f"{tag}: lb {bab.lb} above oracle {opt}")
+        # OA's driver ends st_e14a at SOLVED_GAP_LIMIT (lb 5e-11 below ub)
+        # in both packages
+        check(st in (SolveStatus.SOLVED_OPTIMAL, SolveStatus.SOLVED_GAP_LIMIT)
+              if cls is OABranchAndBound else st == SolveStatus.SOLVED_OPTIMAL,
+              f"{tag}: status {st.name}")
+        check(not anchor, f"{tag}: the CPU root anchor ran")
+        extra = (f"major iterations {bab.oa_stats.major_iters}"
+                 if cls is OABranchAndBound else
+                 f"cuts {bab.qg_stats.cuts_added}, NLP solves "
+                 f"{bab.qg_stats.nlp_solves}")
+        say(f"[8] {tag}: {st.name} ub {bab.ub:.10g} lb {bab.lb:.10g} oracle "
+            f"{opt:.10g}; nodes {bab.stats.nodes_processed}, {extra}; CPU "
+            f"root anchor did not run; {dt:.2f} s")
+
+
+def phase_qg_kernels(record):
+    """K1 in f32 at the QG master's shape and K2 at (B, n) with the
+    master's call (f32 factor and operator, f64 r and x, refine_steps
+    2, the default ipm_refine_steps) against their plain versions."""
+    import torch
+    from minotaur_tpu_torch.ops.spd_inverse import (spd_inverse,
+                                                    spd_inverse_plain)
+    from minotaur_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    dev = torch.device(DEVICE)
+    F64 = torch.float64
+    B, k, steps = QG["B"], QG["n"], 2
+    g = torch.Generator(device=dev).manual_seed(17)
+    A = torch.randn((B, k, k), generator=g, dtype=F64, device=dev)
+    eye = torch.eye(k, dtype=F64, device=dev)
+    ms = (A @ A.transpose(1, 2) / k + 2.0 * eye).float()
+    del A
+    minv, flag = spd_inverse(ms)
+    pminv, pflag = spd_inverse_plain(ms)
+    torch.cuda.synchronize()
+    check(torch.equal(flag, pflag) and bool((flag == 0).all()),
+          "K1 (QG shape): flags differ from plain or a lane failed")
+    resid = (eye - ms.double() @ minv.double()).abs().max().item()
+    k1_err = (minv - pminv).abs().max().item()
+    check(resid < 5e-5, f"K1 (QG shape): residual {resid:.3g}")
+    check(k1_err <= 5e-5 * pminv.abs().max().item(),
+          f"K1 (QG shape) vs plain {k1_err:.3g}")
+    del minv, pminv
+    k1 = dict(ms=event_ms(lambda: spd_inverse(ms), calls=5, reps=3),
+              plain_ms=event_ms(lambda: spd_inverse_plain(ms), calls=5, reps=3),
+              library_ms=event_ms(lambda: torch.linalg.inv_ex(ms), calls=5,
+                                  reps=3))
+    k1["bound_ms"], k1_by = k1_bound(B, k, 4)
+    del ms
+    M, dinv, shift, minv32, _minv64 = k2_inputs(dev, B, k, 19)
+    del _minv64
+    m32, d32, s32 = M.float(), dinv.float(), shift.float()
+    r = torch.randn((B, k), dtype=F64, device=dev)
+    args = (minv32, m32, d32, s32, r, steps, F64)
+    x = spd_solve(*args)
+    px = spd_solve_plain(*args)
+    torch.cuda.synchronize()
+    k2_err = (x - px).abs().max().item()
+    check(k2_err <= 1e-5 * px.abs().max().item(),
+          f"K2 (QG shape) vs plain {k2_err:.3g}")
+    res = ((r - (M @ x[:, :, None])[:, :, 0] - shift * x).norm() /
+           r.norm()).item()
+    check(res < 1e-4, f"K2 (QG shape) residual {res:.3g}")
+    k2 = dict(ms=graph_ms(lambda: spd_solve(*args), calls=10, reps=3),
+              plain_ms=graph_ms(lambda: spd_solve_plain(*args), calls=10,
+                                reps=3))
+    k2["bound_ms"], k2_by = k2_bound(B, k, 4, 4, steps=steps)
+    del M, minv32, m32, args
+    torch.cuda.empty_cache()
+    say(f"[8] K1 spd_inverse ({B},{k},{k}) f32 (the QG master's factor): "
+        f"flags equal to plain, resid {resid:.3g}, max|kernel-plain| "
+        f"{k1_err:.3g}; ms kernel {k1['ms']:.4f} plain {k1['plain_ms']:.4f} "
+        f"inv_ex {k1['library_ms']:.4f} bound {k1['bound_ms']:.4f} "
+        f"({k1_by}).  K2 spd_solve ({B},{k}) f32 factor and operator, f64 r "
+        f"and x, refine {steps}: max|kernel-plain| {k2_err:.3g}, resid "
+        f"{res:.3g}; device ms (CUDA graph replay) kernel {k2['ms']:.4f} "
+        f"plain {k2['plain_ms']:.4f} bound {k2['bound_ms']:.4f} ({k2_by})")
+    record["spd_inverse"].update({f"qg_f32_k{k}_" + key: v for key, v in
+                                  dict(max_abs_err=k1_err, **k1).items()})
+    record["spd_solve"].update({f"qg_refine{steps}_k{k}_" + key: v
+                                for key, v in dict(max_abs_err=k2_err,
+                                                   **k2).items()})
+
+
+def phase_qg_full(record):
+    """QGBranchAndBound on normcon(n, seed) at B lanes (capped): sound,
+    both kernels launched, with the wall seconds of its parts."""
+    from minotaur_tpu_torch import device as mdev
+    from minotaur_tpu_torch.bnb import multistart
+    from minotaur_tpu_torch.bnb.qg import QGBranchAndBound
+    from minotaur_tpu_torch.models.convex_suite import normcon, \
+        normcon_optimum
+    n, seed = QG["n"], QG["seed"]
+    opt = normcon_optimum(n, seed)
+    env = qg_env(node_batch=QG["B"], pad_full=1,
+                 bnb_node_limit=QG["node_cap"], bnb_time_limit=QG["time_cap"])
+    t_build = time.monotonic()
+    bab = QGBranchAndBound(normcon(n, seed), env, device=DEVICE)
+    t_build = time.monotonic() - t_build
+    anchor = watch_anchor(bab)
+    # IPM iterations of every master superstep (main loop, probes, dives)
+    # and of every fix-int oracle batch: [calls, max per call, lane sum]
+    its = {"master": [0, 0, 0], "oracle": [0, 0, 0]}
+
+    def counting(fn, key):
+        def counted(*args):
+            res = fn(*args)
+            c = its[key]
+            c[0] += 1
+            c[1] = max(c[1], int(res.iters.max()))
+            c[2] += int(res.iters.sum())
+            return res
+        return counted
+
+    bab._fetch_step = counting(bab._fetch_step, "master")
+    bab._nlp_solve.unpack = counting(bab._nlp_solve.unpack, "oracle")
+    w = WallSplit()
+    w.wrap(bab, "_qg_root", "root", context=True)
+    w.wrap(bab, "_root_linearizations", "root ESH (root_linearizations)")
+    w.wrap(bab, "_cpu_root_anchor", "root CPU anchor")
+    ms_fn = w.wrap(multistart, "multistart_solve", "root multistart rescue")
+    w.wrap(bab, "_nlp_solve", "NLP solves called directly (root NLP, "
+           "fix-int harvests of dives and pump)")
+    w.wrap(bab, "_dispatch_step", "master supersteps", top=True)
+    w.wrap(bab, "_fetch_step", "master supersteps", top=True)
+    w.wrap(bab, "_dispatch_oracle", "fix-int NLP oracle", context=True)
+    w.wrap(bab, "_run_dive", "master dives", context=True)
+    w.wrap(bab, "_run_true_dive", "true-model dive (_run_true_dive)",
+           context=True)
+    w.wrap(bab, "_run_pump", "feasibility pump", context=True)
+    w.wrap(bab, "_cut_gen", "cut generation (all callers)")
+    found = []                          # (value, superstep, context)
+    accept = bab._accept_incumbent
+
+    def accept_logged(x, val):
+        better = accept(x, val)
+        if better:
+            found.append((val, bab.stats.batches,
+                          w.stack[-1] if w.stack else "main loop"))
+        return better
+
+    bab._accept_incumbent = accept_logged
+    try:
+        mdev.reset_launches()
+        t0 = time.monotonic()
+        st = bab.solve()
+        dt = time.monotonic() - t0
+        counts = mdev.launch_counts()
+    finally:
+        multistart.multistart_solve = ms_fn
+    tol = 1e-6 * (1 + abs(opt))
+    check(bab.lb <= opt + tol and opt <= bab.ub + tol,
+          f"QG normcon_{n} unsound: lb {bab.lb} opt {opt} ub {bab.ub}")
+    nodes = max(1, bab.stats.nodes_processed)
+    s = bab.qg_stats
+    say(f"[8] QG normcon_{n} B={QG['B']}: status {st.name} lb {bab.lb:.10g} "
+        f"opt {opt:.10g} ub {bab.ub:.10g}; nodes {nodes} in {dt:.2f} s = "
+        f"{nodes / dt:.2f} nodes/s (constructor {t_build:.2f} s); supersteps "
+        f"{bab.stats.batches}")
+    say(f"[8] QG normcon_{n} cuts: added {s.cuts_added}, evicted "
+        f"{s.cuts_evicted}, duplicate {s.cuts_duplicate}, in pool "
+        f"{bab.n_cuts}; NLP solves {s.nlp_solves} (feasible "
+        f"{s.nlp_feasible}, infeasible {s.nlp_infeasible}); requeues "
+        f"{s.requeues}")
+    for label in ("root", "root ESH (root_linearizations)",
+                  "root multistart rescue", "root CPU anchor",
+                  "NLP solves called directly (root NLP, fix-int harvests "
+                  "of dives and pump)", "master supersteps",
+                  "fix-int NLP oracle", "master dives",
+                  "true-model dive (_run_true_dive)", "feasibility pump",
+                  "cut generation (all callers)"):
+        say(f"[8] QG normcon_{n} wall s {label}: {w.s.get(label, 0.0):.2f} "
+            f"({w.calls.get(label, 0)} calls)")
+    for key, what in (("master", "master supersteps (main loop, probes, "
+                       "dives)"), ("oracle", "fix-int NLP oracle batches")):
+        c = its[key]
+        say(f"[8] QG normcon_{n} IPM iterations, {what}: {c[0]} calls, max "
+            f"{c[1]} a call, {c[2]} lane-iterations")
+    say(f"[8] QG normcon_{n} incumbents (value, superstep, found in): "
+        + "; ".join(f"{v:.10g}, {b}, {c}" for v, b, c in found))
+    say(f"[8] QG normcon_{n} CPU root anchor ran: {bool(anchor)}")
+    say(f"[8] QG normcon_{n} launches in this solve "
+        f"{{{', '.join(f'{key}: {v}' for key, v in counts.items())}}}")
+    for name, cnt in counts.items():
+        check(cnt > 0, f"kernel {name} was not launched by the QG path")
+    record["qg_launches"] = counts
+
+
+def phase_qg_cli(record):
+    """`python -m minotaur_tpu_torch.solvers.mqg file.nl` on the card:
+    st_e14a written by the port's nl_writer."""
+    from minotaur_tpu_torch.io.nl_writer import write_nl
+    from minotaur_tpu_torch.models.convex_suite import SUITE
+    gen, oracle, _ = SUITE["st_e14a"]
+    opt = oracle()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "st_e14a.nl")
+        write_nl(gen(), path)
+        env = dict(os.environ, PYTHONPATH=HERE)
+        t0 = time.monotonic()
+        out = subprocess.run(
+            [sys.executable, "-m", "minotaur_tpu_torch.solvers.mqg", path],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        dt = time.monotonic() - t0
+        log = out.stdout + out.stderr
+        check(out.returncode == 0, f"mqg exited {out.returncode}:\n{log[-3000:]}")
+        objs = [float(line.rsplit(" ", 1)[1]) for line in log.splitlines()
+                if "best objective:" in line]
+        check(len(objs) == 1 and abs(objs[0] - opt) <= 1e-6 * (1 + abs(opt)),
+              f"mqg objective {objs} vs oracle {opt}")
+        stat = [line for line in log.splitlines() if "status:" in line]
+    say(f"[8] mqg CLI on st_e14a.nl: exit 0 in {dt:.2f} s, best objective "
+        f"{objs[0]:.10g} (oracle {opt:.10g}), {stat[-1].strip()}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "minotaur_tpu_torch")):
         print("chip_smoke: minotaur_tpu_torch not found next to this "
@@ -773,6 +1076,10 @@ def main() -> int:
     phase_nl_ipm(record)
     phase_nl_bnb(record)
     phase_cli(record)
+    phase_qg_small(record)
+    phase_qg_kernels(record)
+    phase_qg_full(record)
+    phase_qg_cli(record)
     launches = record["launches"]
     kernels = []
     for name, src, rep in (
@@ -783,7 +1090,8 @@ def main() -> int:
         r = dict(record[name])
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": rep, "launches": int(launches[name]),
-               "nl_launches": int(record["nl_launches"][name])}
+               "nl_launches": int(record["nl_launches"][name]),
+               "qg_launches": int(record["qg_launches"][name])}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             row[key] = r.pop(key)

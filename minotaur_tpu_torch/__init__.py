@@ -9,8 +9,10 @@ Ported so far: the LP/QP branch-and-bound main path (staging, linear
 FBBT, the batched Mehrotra IPM, the node superstep and the
 reliability-branching host loop), with the two TPU kernels of that path
 rewritten as CUDA kernels for Hopper (`ops/spd_inverse.py`,
-`ops/spd_solve.py`, sources in `csrc/`).  Paths outside the slice raise
-NotImplementedError; ROADMAP.md lists them.
+`ops/spd_solve.py`, sources in `csrc/`); the NL relaxation path; and
+the QG/OA path (`bnb/qg.py`, `bnb/oa.py`, root linearizations, the
+pump, the dives and multistart) with its solver entry points.  Paths
+outside these slices raise NotImplementedError; ROADMAP.md lists them.
 """
 
 from . import utils  # noqa: F401

@@ -12,7 +12,8 @@ Port of minotaur_tpu/bnb/bnb.py.  The host code is the JAX package's, as
 it is; only the device seam changes (`_step`, `_device_consts`,
 `_dispatch_step`/`_fetch_step`), and the device is named by the caller
 (`device=`, default "cuda").  Options the port does not have yet raise
-NotImplementedError in the constructor, and the code paths only they
+NotImplementedError in the constructor (a subclass that applies one
+itself lists it in `_handled_options`), and the code paths only they
 reach are left out.
 """
 
@@ -49,8 +50,12 @@ _UNPORTED_OPTIONS = (
 )
 
 
-def _check_unported(opts, problem: Problem) -> None:
+def _check_unported(opts, problem: Problem, handled=()) -> None:
+    """Raise for options outside the port; `handled` names the ones the
+    calling driver applies itself (QG: persp_ref, fpump)."""
     for name, bad in _UNPORTED_OPTIONS:
+        if name in handled:
+            continue
         val = opts.get(name)
         if (bool(val) if bad is True else str(val) == bad):
             raise NotImplementedError(
@@ -89,6 +94,9 @@ class BabStats:
 
 
 class BranchAndBound:
+    # options of _UNPORTED_OPTIONS that a subclass applies itself
+    _handled_options: tuple = ()
+
     def __init__(self, problem: Problem, env: Optional[Environment] = None,
                  staged: Optional[StagedProblem] = None, device="cuda"):
         self.env = env or Environment()
@@ -96,7 +104,7 @@ class BranchAndBound:
         self.problem_original = problem
         self.postsolve = None
         opts = self.env.options
-        _check_unported(opts, problem)
+        _check_unported(opts, problem, self._handled_options)
         if staged is None and opts.get("presolve_subst"):
             # root substitution/elimination presolve (reference:
             # LinearHandler::substVars_ LinearHandler.cpp:1429 +
@@ -483,14 +491,22 @@ class BranchAndBound:
         return next_id
 
     def _device_consts(self):
-        """Device-resident (A, clb, cub) as float64 tensors, made once
-        after the root presolve has finished editing the rows."""
-        if self._dev_consts is None:
-            t = lambda a: torch.as_tensor(a, dtype=F64,  # noqa: E731
-                                          device=self.device)
-            self._dev_consts = (t(self.sp.A), t(self.sp.clb),
-                                t(self.sp.cub))
+        """Device-resident copies of `_master_arrays()` (A, clb, cub) as
+        float64 tensors, made after the root presolve has finished
+        editing the rows and made again whenever `_consts_version()`
+        changes (QG's cut pool writes rows in place)."""
+        version = self._consts_version()
+        if self._dev_consts is None or self._dev_version != version:
+            t = lambda a: torch.tensor(a, dtype=F64,  # noqa: E731
+                                       device=self.device)
+            self._dev_consts = tuple(t(a) for a in self._master_arrays())
+            self._dev_version = version
         return self._dev_consts
+
+    def _consts_version(self) -> int:
+        """Version of the master arrays' contents (bumped by subclasses
+        that edit them after the first superstep)."""
+        return 0
 
     def _dispatch_step(self, vlb_b, vub_b, x0_b, y0_b=None):
         """Enqueue one superstep; returns a handle for _fetch_step (the
@@ -941,7 +957,7 @@ class BranchAndBound:
             if r is not None:
                 self._accept_incumbent(r[0], r[1])
         # divheur / msheur / samplingheur / fixvarsheur / qpdheur raise in
-        # the constructor: those heuristics are not yet ported
+        # the constructor: the plain B&B does not run them yet
 
     def _strong_branch_init(self, x: np.ndarray, nvlb: np.ndarray,
                             nvub: np.ndarray, obj: float) -> None:

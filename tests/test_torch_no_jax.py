@@ -2,12 +2,17 @@
 
 Checked in a fresh interpreter (this test process has jax loaded by
 conftest): import every module of minotaur_tpu_torch (the NL path, the
-readers and the `mbnb` CLI included), then look at sys.modules.
+readers, the QG/OA path and the solver CLIs included), then look at
+sys.modules.  The port keeps its own copies of the JAX package's
+numpy-only modules; those copied as they are must stay byte-equal to
+the JAX package's file.
 """
 
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,7 +34,10 @@ for name in ("ops.stage", "ops.interval", "engines.staging", "convert",
              "bnb.nlpres", "bnb.substitute", "bnb.bin2lin",
              "models.convex_suite", "io.nl_reader", "io.mps_reader",
              "io.sol_writer", "io.nl_writer", "io.gams_reader",
-             "solvers.base", "solvers.mbnb"):
+             "solvers.base", "solvers.mbnb", "bnb.cuts", "bnb.heuristics",
+             "bnb.persp", "bnb.multistart", "bnb.linearizations", "bnb.qg",
+             "bnb.oa", "solvers.mqg", "solvers.moa", "solvers.mlstoa",
+             "solvers.mqgpar", "solvers.msbnb", "solvers.mmultistart"):
     assert "minotaur_tpu_torch." + name in names, name
 assert not bad, bad
 """
@@ -51,3 +59,24 @@ def test_no_set_default_dtype():
             if f.endswith(".py"):
                 with open(os.path.join(dirpath, f)) as fh:
                     assert "set_default_dtype" not in fh.read(), f
+
+
+# modules the port copies byte for byte from the JAX package
+VERBATIM = (
+    "utils/__init__.py", "utils/types.py", "utils/options.py",
+    "utils/logger.py", "utils/timer.py", "utils/environment.py",
+    "ir/expr.py", "ir/functions.py", "ir/problem.py", "ops/opcodes.py",
+    "bnb/node.py", "bnb/solpool.py", "bnb/trimloss.py", "bnb/nlpres.py",
+    "bnb/bin2lin.py", "bnb/cuts.py", "bnb/persp.py",
+    "models/generators.py", "models/convex_suite.py",
+    "io/nl_reader.py", "io/nl_writer.py", "io/mps_reader.py",
+    "io/sol_writer.py", "io/gams_reader.py",
+)
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_verbatim_copies(rel):
+    with open(os.path.join(ROOT, "minotaur_tpu", rel), "rb") as fh:
+        ref = fh.read()
+    with open(os.path.join(ROOT, "minotaur_tpu_torch", rel), "rb") as fh:
+        assert fh.read() == ref, rel
