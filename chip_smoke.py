@@ -28,7 +28,17 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
      against their plain versions; the full-width QG run on
      normcon(1024, 7) at B=64 (capped), sound, with its cut and NLP
      counts, the wall seconds of its parts and the kernels' launch
-     counts; and the `mqg` CLI on st_e14a.nl.
+     counts; and the `mqg` CLI on st_e14a.nl;
+  9. the rest of `mbnb`: (a) intquad(300) at the bench settings under
+     the default native node store, with `dtype f32` (the f32 light
+     phase and f32 tail corrections), two Gondzio correctors and OBBT
+     (capped), sound, with a light-phase IPM batch held to the plain
+     versions lane by lane and K1 at the OBBT lanes' shape and K2 at the
+     light phase's dtypes timed against plain; (b) normcon(1024, 7) under
+     the QPD node processor with `qpdheur` (capped), sound, with the
+     lanes verified on the true model; (c) intquad(300) checkpointed
+     under a node cap and resumed to a sound finish, an SOS1 and an SOS2
+     model, and `brancher weak` on cknap_30a, at their optima.
 
 Every phase prints one line; any failed check raises and the process
 exits non-zero without the final line.  The next-to-last line is the
@@ -51,11 +61,24 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 # phase 7: normcon(n, seed) at B lanes (SUITE["normcon_1024a"]), its full
 # search capped at node_cap nodes and time_cap seconds
-NL = dict(n=1024, seed=7, B=64, node_cap=512, time_cap=150.0)
+NL = dict(n=1024, seed=7, B=64, node_cap=256, time_cap=150.0)
 NL_ROWS = ("normcon_20a", "expbudget_8a", "ex1223_a", "batchdes_a")
 # phase 8: QGBranchAndBound on normcon(n, seed) at B lanes (the sweep's
 # mqg row normcon_1024a), capped at node_cap nodes and time_cap seconds
-QG = dict(n=1024, seed=7, B=64, node_cap=512, time_cap=180.0)
+QG = dict(n=1024, seed=7, B=64, node_cap=256, time_cap=180.0)
+# phase 9a: the main-path model under dtype f32 with Gondzio correctors
+# and OBBT (whose linear view of intquad is one row: K1 at (2n, 1, 1))
+F32_PATH = dict(n=300, node_cap=8192, time_cap=60.0, obbt_k=1,
+                options=(("dtype", "f32"), ("obbt", 1)), gondzio=2,
+                max_flips=4)
+# phase 9b: normcon(n, seed) under nodeproc qpd + qpdheur, capped
+QPD = dict(n=1024, seed=7, B=64, node_cap=512, time_cap=60.0)
+# phase 9c: the checkpointed run's node cap, the resumed run's time cap
+CKPT = dict(node_cap=320, time_cap=60.0)
+# the bench's IPM settings (bench.py:78-95) as driver options
+BENCH_OPTIONS = (("node_batch", 64), ("pad_full", 1), ("ipm_max_iters", 28),
+                 ("ipm_tail_kkt_rounds", 4), ("ipm_refine_steps", 0),
+                 ("ipm_chol_retry", 0))
 
 
 class CheckFailed(AssertionError):
@@ -318,10 +341,12 @@ def phase_k2(record):
     F32, F64 = torch.float32, torch.float64
     # k: the scalar path (1, 31, 33, 301) and the 16-byte path (300, 1000;
     # at k=1000, R=8 the refinement vectors of an f64 operator leave shared
-    # memory); dtypes (factor, operator, r, x): the three pairs and the
-    # main path's f32 pair with f64 r and x
+    # memory); dtypes (factor, operator, r, x): the three pairs, the
+    # main path's f32 pair with f64 r and x, and the light phase's f32
+    # pair with f64 r and f32 x (dtype f32)
     combos = ((F32, F32, F32, F32), (F32, F64, F64, F64),
-              (F64, F64, F64, F64), (F32, F32, F64, F64))
+              (F64, F64, F64, F64), (F32, F32, F64, F64),
+              (F32, F32, F64, F32))
     worst = {}
     ncase = 0
     for k in (1, 31, 33, 300, 301, 1000):
@@ -414,61 +439,72 @@ def phase_k2(record):
                                bound_by=b_by, library_ms=None, **t)
 
 
-def phase_ipm(record):
+def ipm_vs_plain(sp, lo, hi, label, kw, obj_tol, max_flips=0):
+    """One IPM batch through the kernels and through their plain versions:
+    statuses equal lane by lane (but for at most max_flips lanes that end
+    OPTIMAL in one run and ITERATION_LIMIT in the other), objectives of
+    lanes optimal in both within obj_tol, each run's certified bound
+    below the other's optimum.  Returns the phase line's part and the
+    lanes that flipped."""
     import numpy as np
     from minotaur_tpu_torch.engines.ipm import IPMOptions, build_batch_solver
+    from minotaur_tpu_torch.tools.profile_bnb import plain_kernels
+    B = lo.shape[0]
+    solve = build_batch_solver(sp, IPMOptions(**kw), device=DEVICE)
+    t0 = time.monotonic()
+    rk = solve(sp.A, sp.clb, sp.cub, lo, hi)
+    t_k = time.monotonic() - t0
+    with plain_kernels():
+        t0 = time.monotonic()
+        rp = solve(sp.A, sp.clb, sp.cub, lo, hi)
+        t_p = time.monotonic() - t0
+    for r in (rk, rp):
+        check(np.all(np.isfinite(r.x)) and r.x.shape == (B, sp.n),
+              "IPM returned non-finite x")
+    scale = 1.0 + np.abs(rp.obj)
+    same = rk.status == rp.status
+    opt_k, opt_p = rk.status == 1, rp.status == 1
+    flips = np.where(~same)[0]
+    check(len(flips) <= max_flips and
+          bool(np.isin(rk.status[flips], (1, 4)).all()) and
+          bool(np.isin(rp.status[flips], (1, 4)).all()),
+          f"IPM ({label}): statuses differ on lanes {flips.tolist()}: "
+          f"kernel {rk.status[flips].tolist()} plain "
+          f"{rp.status[flips].tolist()}")
+    rel = np.where(opt_k & opt_p, np.abs(rk.obj - rp.obj) / scale, 0.0)
+    check(rel.max() <= obj_tol,
+          f"IPM ({label}): objective mismatch {rel.max():.3g}")
+    # each run's certified bound lies below the other run's optimum
+    for r, o in ((rk, rp), (rp, rk)):
+        lim = o.obj + obj_tol * (1.0 + np.abs(o.obj))
+        bad = np.where((o.status == 1) & (r.dual_bound > lim))[0]
+        check(bad.size == 0, f"IPM ({label}): certified bound above the "
+              f"other run's optimum on lanes {bad.tolist()}")
+    flipped = (f" (OPTIMAL/ITERATION_LIMIT flips on lanes "
+               f"{flips.tolist()})") if len(flips) else ""
+    return (f"{label}: statuses equal {int(same.sum())}/{B}{flipped}, optimal "
+            f"{int(opt_k.sum())}/{int(opt_p.sum())}, max|dobj|/(1+|obj|) "
+            f"over optimal lanes {rel.max():.3g}, iters "
+            f"{int(rk.iters.max())}/{int(rp.iters.max())}, wall s kernel "
+            f"{t_k:.2f} plain {t_p:.2f}"), flips
+
+
+def phase_ipm(record):
+    from minotaur_tpu_torch.engines.ipm import IPMOptions
     from minotaur_tpu_torch.engines.staging import stage_problem
     from minotaur_tpu_torch.models.convex_suite2 import intquad
-    from minotaur_tpu_torch.tools.profile_bnb import plain_kernels
+    from minotaur_tpu_torch.tools.ipm_routes import POLICIES, phase5_boxes
     sp = stage_problem(intquad(300, 4, 0))
-    rng = np.random.default_rng(7)
-    B = 64
-    lo = np.tile(sp.vlb, (B, 1))
-    hi = np.tile(sp.vub, (B, 1))
-    for b in range(1, B):
-        pick = rng.choice(sp.n, size=int(rng.integers(1, 40)), replace=False)
-        v = rng.integers(0, 5, size=len(pick)).astype(float)
-        lo[b, pick] = v
-        hi[b, pick] = v
+    lo, hi = phase5_boxes(sp, 64)
     lines = []
     # the f64 policy, and the mixed policy at the bench's settings (what
     # phase 6 runs)
     for label, kw in (("f64", dict(factor_f32=False, tail_factor_f32=False)),
-                      ("bench", dict(max_iters=28, tail_kkt_rounds=4,
-                                     refine_steps=0, chol_retry=False))):
-        solve = build_batch_solver(sp, IPMOptions(**kw), device=DEVICE)
-        t0 = time.monotonic()
-        rk = solve(sp.A, sp.clb, sp.cub, lo, hi)
-        t_k = time.monotonic() - t0
-        with plain_kernels():
-            t0 = time.monotonic()
-            rp = solve(sp.A, sp.clb, sp.cub, lo, hi)
-            t_p = time.monotonic() - t0
-        for r in (rk, rp):
-            check(np.all(np.isfinite(r.x)) and r.x.shape == (B, sp.n),
-                  "IPM returned non-finite x")
-        scale = 1.0 + np.abs(rp.obj)
-        same = rk.status == rp.status
-        opt_k, opt_p = rk.status == 1, rp.status == 1
-        check(bool(same.all()), f"IPM ({label}): statuses differ on lanes "
-              f"{np.where(~same)[0].tolist()}")
-        rel = np.where(opt_k, np.abs(rk.obj - rp.obj) / scale, 0.0)
+                      ("bench", POLICIES["bench"])):
         obj_tol = 1e-6 if label == "f64" else 10 * IPMOptions(**kw).tail_tol
-        check(rel.max() <= obj_tol,
-              f"IPM ({label}): objective mismatch {rel.max():.3g}")
-        # each run's certified bound lies below the other run's optimum
-        for r, o in ((rk, rp), (rp, rk)):
-            lim = o.obj + obj_tol * (1.0 + np.abs(o.obj))
-            bad = np.where((o.status == 1) & (r.dual_bound > lim))[0]
-            check(bad.size == 0, f"IPM ({label}): certified bound above the "
-                  f"other run's optimum on lanes {bad.tolist()}")
-        lines.append(
-            f"{label}: statuses equal {int(same.sum())}/{B}, optimal "
-            f"{int(opt_k.sum())}/{int(opt_p.sum())}, max|dobj|/(1+|obj|) "
-            f"over optimal lanes {rel.max():.3g}, iters "
-            f"{int(rk.iters.max())}/{int(rp.iters.max())}, wall s kernel "
-            f"{t_k:.2f} plain {t_p:.2f}")
-    say("[5] IPM intquad(300) B=64 kernel vs plain ok: " + "; ".join(lines))
+        lines.append(ipm_vs_plain(sp, lo, hi, label, kw, obj_tol)[0])
+    say(f"[5] IPM intquad(300) B={lo.shape[0]} kernel vs plain ok: " +
+        "; ".join(lines))
 
 
 def phase_main_path(record):
@@ -498,10 +534,9 @@ def phase_main_path(record):
 
     # intquad(300) at the bench settings (bench.py:78-95)
     env = Environment()
-    for k, v in (("node_batch", 64), ("pad_full", 1), ("ipm_max_iters", 28),
-                 ("ipm_tail_kkt_rounds", 4), ("ipm_refine_steps", 0),
-                 ("ipm_chol_retry", 0), ("bnb_node_limit", 8192),
-                 ("bnb_time_limit", 180.0), ("log_level", 1)):
+    for k, v in BENCH_OPTIONS + (("bnb_node_limit", 8192),
+                                 ("bnb_time_limit", 180.0),
+                                 ("log_level", 1)):
         env.set_option(k, v)
     opt = intquad_optimum(300, 4, 0)
     bab = BranchAndBound(intquad(300, 4, 0), env, device=DEVICE)
@@ -1055,6 +1090,317 @@ def phase_qg_cli(record):
         f"{objs[0]:.10g} (oracle {opt:.10g}), {stat[-1].strip()}")
 
 
+def phase_f32_path(record):
+    """9a: the main-path model under the default native node store, with
+    `dtype f32` (light phase + f32 tail corrections), two Gondzio
+    correctors and OBBT; a light-phase IPM batch held to plain lane by
+    lane; K1 at the OBBT lanes' shape and K2 at the light phase's dtypes,
+    timed against plain."""
+    import dataclasses
+    import torch
+    from minotaur_tpu_torch import device as mdev
+    from minotaur_tpu_torch.bnb import presolve
+    from minotaur_tpu_torch.bnb.bnb import BranchAndBound
+    from minotaur_tpu_torch.bnb.step import build_node_step
+    from minotaur_tpu_torch.engines.ipm import IPMOptions
+    from minotaur_tpu_torch.engines.staging import stage_problem
+    from minotaur_tpu_torch.models.convex_suite2 import (intquad,
+                                                          intquad_optimum)
+    from minotaur_tpu_torch.ops.spd_inverse import (spd_inverse,
+                                                    spd_inverse_plain)
+    from minotaur_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    from minotaur_tpu_torch.tools.ipm_routes import (POLICIES, phase5_boxes,
+                                                     route_statuses)
+    from minotaur_tpu_torch.utils.environment import Environment
+
+    env = Environment()
+    for k, v in BENCH_OPTIONS + F32_PATH["options"] + (
+            ("bnb_node_limit", F32_PATH["node_cap"]),
+            ("bnb_time_limit", F32_PATH["time_cap"]), ("log_level", 1)):
+        env.set_option(k, v)
+    n = F32_PATH["n"]
+    opt = intquad_optimum(n, 4, 0)
+    bab = BranchAndBound(intquad(n, 4, 0), env, device=DEVICE)
+    # the correctors are an IPM option, not a driver option (in the JAX
+    # package too): the node step is rebuilt with them
+    sopts = bab._step_opts
+    bab._step_opts = dataclasses.replace(sopts, ipm=dataclasses.replace(
+        sopts.ipm, gondzio_correctors=F32_PATH["gondzio"]))
+    bab._step = build_node_step(bab.sp, bab._step_opts, DEVICE)
+    store = type(bab.tm).__name__
+    say(f"[9a] tree store: {store}")
+    check(store == "NativeTreeManager",
+          f"default tree store is {store}, not the native one")
+    # OBBT's lane count, bound changes and launches, read around the call
+    obbt = {}
+    plain_obbt = presolve.Presolver.obbt
+
+    def counted_obbt(pre, vlb, vub):
+        before = mdev.launch_counts()
+        out = plain_obbt(pre, vlb, vub)
+        after = mdev.launch_counts()
+        obbt.update(lanes=2 * len(vlb), tightened=pre.stats.obbt_tightened,
+                    launches={k: after[k] - before[k] for k in after})
+        return out
+
+    presolve.Presolver.obbt = counted_obbt
+    try:
+        mdev.reset_launches()
+        t0 = time.monotonic()
+        st = bab.solve()
+        dt = time.monotonic() - t0
+        counts = mdev.launch_counts()
+    finally:
+        presolve.Presolver.obbt = plain_obbt
+    tol = 1e-6 * (1 + abs(opt))
+    check(bool(obbt), "OBBT did not run")
+    check(bab.lb <= opt + tol and opt <= bab.ub + tol,
+          f"intquad_{n} (dtype f32) unsound: lb {bab.lb} opt {opt} "
+          f"ub {bab.ub}")
+    for name, cnt in counts.items():
+        check(cnt > 0, f"kernel {name} was not launched under dtype f32")
+    nodes = max(1, bab.stats.nodes_processed)
+    say(f"[9a] intquad_{n} B=64 dtype f32, gondzio_correctors "
+        f"{F32_PATH['gondzio']}, obbt 1: "
+        f"status {st.name} lb {bab.lb:.10g} opt {opt:.10g} ub "
+        f"{bab.ub:.10g}; nodes {nodes} in {dt:.2f} s = {nodes / dt:.2f} "
+        f"nodes/s; IPM iterations {bab.stats.ipm_iters}; OBBT {obbt['lanes']} "
+        f"lanes, {obbt['tightened']} bounds tightened, launches "
+        f"{obbt['launches']}; launches in this solve "
+        f"{{{', '.join(f'{k}: {v}' for k, v in counts.items())}}}")
+    record["f32_launches"] = counts
+    record["obbt_launches"] = obbt["launches"]
+
+    # a light-phase IPM batch (phase 5's boxes) through the kernels and
+    # the plain versions, statuses lane by lane.  With f32 residuals more
+    # lanes end at the f32 limit, where the kernels' rounding alone can
+    # move a lane between OPTIMAL and ITERATION_LIMIT: up to
+    # F32_PATH["max_flips"] such lanes are allowed, and ipm_routes names
+    # the kernel that moved them
+    sp = stage_problem(intquad(n, 4, 0))
+    lo, hi = phase5_boxes(sp, 64)
+    kw = POLICIES["f32"]
+    check(kw["gondzio_correctors"] == F32_PATH["gondzio"],
+          "ipm_routes' f32 policy differs from phase 9a's")
+    line, flips = ipm_vs_plain(sp, lo, hi, "dtype f32 + gondzio", kw,
+                               10 * IPMOptions(**kw).tail_tol,
+                               max_flips=F32_PATH["max_flips"])
+    say(f"[9a] IPM intquad({n}) B={lo.shape[0]} kernel vs plain ok: {line}")
+    if len(flips):
+        routes = route_statuses(n, 64, DEVICE, "f32")
+        say("[9a] lanes moved, by route (K1/K2) against plain/plain, as "
+            "(lane, status, plain status, iters, plain iters): " +
+            "; ".join(f"{r}: {v}" for r, v in routes.items()))
+
+    # K1 at the OBBT lanes' shape (2n lanes of the linear view's
+    # condensed matrix, f32) and K2 at the light phase's call (f32 factor
+    # and operator, f64 r, f32 x, refine 0), against plain
+    import numpy as np
+    rng = np.random.default_rng(9)
+    dev = torch.device("cuda")
+    kk = F32_PATH["obbt_k"]
+    ms = torch.as_tensor(spd_batch(rng, 2 * n, kk), dtype=torch.float32,
+                         device=dev)
+    minv, flag = spd_inverse(ms)
+    pminv, pflag = spd_inverse_plain(ms)
+    torch.cuda.synchronize()
+    k1_err = (minv - pminv).abs().max().item()
+    check(torch.equal(flag, pflag) and
+          k1_err <= 5e-5 * pminv.abs().max().item(),
+          f"K1 at the OBBT shape vs plain {k1_err:.3g}")
+    k1 = dict(ms=event_ms(lambda: spd_inverse(ms)),
+              plain_ms=event_ms(lambda: spd_inverse_plain(ms)),
+              library_ms=event_ms(lambda: torch.linalg.inv_ex(ms)))
+    k1["bound_ms"], k1["bound_by"] = k1_bound(2 * n, kk, 4)
+    # K2 at the OBBT lanes' call: the default IPM's f32 factor and
+    # operator, f64 r and x, refine 2 (m-space, k = the linear rows)
+    Mo, dvo, sho, minvo, _ = k2_inputs(dev, 2 * n, kk, 13)
+    oargs = (minvo, Mo.float(), dvo.float(), sho.float(),
+             torch.randn((2 * n, kk), dtype=torch.float64, device=dev))
+    xo = spd_solve(*oargs, 2, torch.float64)
+    pxo = spd_solve_plain(*oargs, 2, torch.float64)
+    torch.cuda.synchronize()
+    k2o_err = (xo - pxo).abs().max().item()
+    check(k2o_err <= 1e-5 * pxo.abs().max().item(),
+          f"K2 at the OBBT shape vs plain {k2o_err:.3g}")
+    k2o = dict(ms=graph_ms(lambda: spd_solve(*oargs, 2, torch.float64)),
+               plain_ms=graph_ms(lambda: spd_solve_plain(*oargs, 2,
+                                                         torch.float64)))
+    # Minv and M read once, dinv and shift (f32), r (f64) read once, x
+    # (f64) written once; 2 + 2 x 2 products of 2 k^2 flops
+    k2o["bound_ms"], k2o["bound_by"] = bound(
+        2 * 2 * n * kk * kk * 6,
+        2 * n * (2 * kk * kk * 4 + 2 * kk * 4 + 2 * kk * 8), 4)
+    M, dinv, shift, minv32, _ = k2_inputs(dev, 64, n, 11)
+    args = (minv32, M.float(), dinv.float(), shift.float(),
+            torch.randn((64, n), dtype=torch.float64, device=dev))
+    x = spd_solve(*args, 0, torch.float32)
+    px = spd_solve_plain(*args, 0, torch.float32)
+    torch.cuda.synchronize()
+    k2_err = (x - px).abs().max().item()
+    check(x.dtype == torch.float32 and
+          k2_err <= 1e-5 * px.abs().max().item(),
+          f"K2 at the light phase's dtypes vs plain {k2_err:.3g}")
+    k2 = dict(ms=graph_ms(lambda: spd_solve(*args, 0, torch.float32)),
+              call_ms=event_ms(lambda: spd_solve(*args, 0, torch.float32)),
+              plain_ms=graph_ms(lambda: spd_solve_plain(*args, 0,
+                                                        torch.float32)))
+    # f64 r read once, f32 x written once
+    k2["bound_ms"], k2["bound_by"] = bound(
+        2 * 64 * n * n, 64 * (n * n * 4 + n * 4 + n * 8 + n * 4), 4)
+    say(f"[9a] K1 at the OBBT shape ({2 * n},{kk},{kk}) f32: max|kernel-"
+        f"plain| {k1_err:.3g}, ms kernel {k1['ms']:.4f} plain "
+        f"{k1['plain_ms']:.4f} inv_ex {k1['library_ms']:.4f} bound "
+        f"{k1['bound_ms']:.4f} ({k1['bound_by']}); K2 at the OBBT shape "
+        f"({2 * n},{kk}) f32/f32, f64 r and x, refine 2: max|kernel-plain| "
+        f"{k2o_err:.3g}, device ms kernel {k2o['ms']:.4f} plain "
+        f"{k2o['plain_ms']:.4f} bound {k2o['bound_ms']:.6f} "
+        f"({k2o['bound_by']}); K2 at the light phase's "
+        f"call (64,{n}) f32/f32, f64 r, f32 x, refine 0: max|kernel-plain| "
+        f"{k2_err:.3g}, device ms kernel {k2['ms']:.4f} plain "
+        f"{k2['plain_ms']:.4f}, call ms {k2['call_ms']:.4f}, bound "
+        f"{k2['bound_ms']:.4f} ({k2['bound_by']})")
+    record["spd_inverse"].update(
+        {"obbt_" + key: v for key, v in k1.items() if key != "bound_by"})
+    record["spd_solve"].update(
+        {"light_" + key: v for key, v in k2.items() if key != "bound_by"})
+    record["spd_solve"].update(
+        {"obbt_" + key: v for key, v in k2o.items() if key != "bound_by"})
+
+
+def phase_qpd(record):
+    """9b: normcon(n, seed) under the QPD node processor with qpdheur, at
+    full width (capped): sound, with the lanes verified on the true
+    model."""
+    from minotaur_tpu_torch import device as mdev
+    from minotaur_tpu_torch.bnb.bnb import BranchAndBound
+    from minotaur_tpu_torch.models.convex_suite import normcon, \
+        normcon_optimum
+    from minotaur_tpu_torch.utils.environment import Environment
+    env = Environment()
+    for key, v in (("node_batch", QPD["B"]), ("pad_full", 1),
+                   ("nodeproc", "qpd"), ("qpdheur", 1),
+                   ("bnb_node_limit", QPD["node_cap"]),
+                   ("bnb_time_limit", QPD["time_cap"]), ("log_level", 1)):
+        env.set_option(key, v)
+    n, seed = QPD["n"], QPD["seed"]
+    opt = normcon_optimum(n, seed)
+    t0 = time.monotonic()
+    bab = BranchAndBound(normcon(n, seed), env, device=DEVICE)
+    t_build = time.monotonic() - t0
+    mdev.reset_launches()
+    t0 = time.monotonic()
+    st = bab.solve()
+    dt = time.monotonic() - t0
+    counts = mdev.launch_counts()
+    tol = 1e-6 * (1 + abs(opt))
+    check(bab.lb <= opt + tol and opt <= bab.ub + tol,
+          f"normcon_{n} (qpd) unsound: lb {bab.lb} opt {opt} ub {bab.ub}")
+    check(bab._qpd_verified > 0, "no lane was verified on the true model")
+    for name, cnt in counts.items():
+        check(cnt > 0, f"kernel {name} was not launched under qpd")
+    nodes = max(1, bab.stats.nodes_processed)
+    say(f"[9b] normcon_{n} B={QPD['B']} nodeproc qpd, qpdheur 1: status "
+        f"{st.name} lb {bab.lb:.10g} opt {opt:.10g} ub {bab.ub:.10g}; nodes "
+        f"{nodes} in {dt:.2f} s = {nodes / dt:.2f} nodes/s (QP model built "
+        f"in {t_build:.2f} s); lanes verified on the true model "
+        f"{bab._qpd_verified}; supersteps {bab.stats.batches}; launches "
+        f"{{{', '.join(f'{k}: {v}' for k, v in counts.items())}}}")
+    record["qpd_launches"] = counts
+
+
+def phase_ckpt_sos_weak(record):
+    """9c: the main-path model checkpointed under a node cap, then resumed
+    to a sound finish; an SOS1 and an SOS2 model at their optima; and
+    `brancher weak` on a small integer knapsack at its DP optimum."""
+    import numpy as np
+    from minotaur_tpu_torch.bnb.bnb import BranchAndBound
+    from minotaur_tpu_torch.ir.functions import Function, LinearFunction
+    from minotaur_tpu_torch.ir.problem import Problem
+    from minotaur_tpu_torch.models.convex_suite2 import (intquad,
+                                                          intquad_optimum)
+    from minotaur_tpu_torch.models.generators import (correlated_knapsack,
+                                                      knapsack_dp_optimum)
+    from minotaur_tpu_torch.utils.environment import Environment
+    from minotaur_tpu_torch.utils.types import SolveStatus
+
+    def env_of(*opts):
+        env = Environment()
+        for k, v in (("log_level", 1),) + opts:
+            env.set_option(k, v)
+        return env
+
+    n = F32_PATH["n"]
+    opt = intquad_optimum(n, 4, 0)
+    tol = 1e-6 * (1 + abs(opt))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "search.npz")
+        first = BranchAndBound(intquad(n, 4, 0), env_of(
+            *BENCH_OPTIONS, ("checkpoint_file", ck),
+            ("checkpoint_interval", 0.0),
+            ("bnb_node_limit", CKPT["node_cap"])), device=DEVICE)
+        t0 = time.monotonic()
+        st1 = first.solve()
+        dt1 = time.monotonic() - t0
+        check(os.path.exists(ck), "no checkpoint was written")
+        check(first.lb <= opt + tol and opt <= first.ub + tol,
+              f"checkpointed run unsound: lb {first.lb} ub {first.ub}")
+        second = BranchAndBound(intquad(n, 4, 0), env_of(
+            *BENCH_OPTIONS, ("checkpoint_file", ck), ("resume", 1),
+            ("checkpoint_interval", 1e9),
+            ("bnb_time_limit", CKPT["time_cap"])), device=DEVICE)
+        with np.load(ck) as data:
+            open_nodes = int(data["vlb"].shape[0])
+        t0 = time.monotonic()
+        st2 = second.solve()
+        dt2 = time.monotonic() - t0
+    check(second.lb <= opt + tol and opt <= second.ub + tol,
+          f"resumed run unsound: lb {second.lb} opt {opt} ub {second.ub}")
+    check(second.lb >= first.lb - tol, "resumed bound fell below the "
+          "checkpoint's")
+    say(f"[9c] intquad_{n} checkpointed at the {CKPT['node_cap']}-node cap: "
+        f"{st1.name} nodes {first.stats.nodes_processed} in {dt1:.2f} s, lb "
+        f"{first.lb:.10g} ub {first.ub:.10g}, {open_nodes} open nodes "
+        f"saved; resumed: {st2.name} nodes {second.stats.nodes_processed} "
+        f"in {dt2:.2f} s, lb {second.lb:.10g} opt {opt:.10g} ub "
+        f"{second.ub:.10g}")
+
+    lines = []
+    for kind, weights, c, cap in (
+            ("sos1", [1.0, 2.0, 3.0], [-1.0, -1.0, -1.0], None),
+            ("sos2", [1.0, 2.0, 3.0, 4.0, 5.0],
+             [-1.0, -3.0, -2.0, -4.0, -1.0], 1.5)):
+        p = Problem(kind)
+        for _ in c:
+            p.new_variable(0.0, 1.0)
+        if cap is not None:
+            p.new_constraint(Function(lf=LinearFunction(
+                {j: 1.0 for j in range(len(c))})), -np.inf, cap, "cap")
+        p.new_objective(Function(lf=LinearFunction(dict(enumerate(c)))))
+        getattr(p, "_" + kind).append((weights, list(range(len(c)))))
+        want = -1.0 if kind == "sos1" else -5.0
+        bab = BranchAndBound(p, env_of(("node_batch", 4)), device=DEVICE)
+        st = bab.solve()
+        check(st == SolveStatus.SOLVED_OPTIMAL and abs(bab.ub - want) < 1e-6,
+              f"{kind}: {st.name} ub {bab.ub} (optimum {want})")
+        nz = np.where(np.abs(bab.best_x) > 1e-6)[0]
+        check(len(nz) <= (1 if kind == "sos1" else 2) and
+              (kind == "sos1" or len(nz) < 2 or nz[1] - nz[0] == 1),
+              f"{kind}: solution violates the set: {bab.best_x}")
+        lines.append(f"{kind} ub {bab.ub:.10g} (optimum {want:g}) nodes "
+                     f"{bab.stats.nodes_processed}")
+    opt_k = knapsack_dp_optimum(30, 1)
+    bab = BranchAndBound(correlated_knapsack(30, 1),
+                         env_of(("brancher", "weak")), device=DEVICE)
+    st = bab.solve()
+    check(st == SolveStatus.SOLVED_OPTIMAL and
+          abs(bab.ub - opt_k) <= 1e-6 * (1 + abs(opt_k)),
+          f"brancher weak on cknap_30a: {st.name} ub {bab.ub} vs {opt_k}")
+    lines.append(f"brancher weak cknap_30a ub {bab.ub:.10g} (oracle "
+                 f"{opt_k:.10g}) nodes {bab.stats.nodes_processed}")
+    say("[9c] " + "; ".join(lines))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "minotaur_tpu_torch")):
         print("chip_smoke: minotaur_tpu_torch not found next to this "
@@ -1080,6 +1426,9 @@ def main() -> int:
     phase_qg_kernels(record)
     phase_qg_full(record)
     phase_qg_cli(record)
+    phase_f32_path(record)
+    phase_qpd(record)
+    phase_ckpt_sos_weak(record)
     launches = record["launches"]
     kernels = []
     for name, src, rep in (
@@ -1091,7 +1440,10 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": rep, "launches": int(launches[name]),
                "nl_launches": int(record["nl_launches"][name]),
-               "qg_launches": int(record["qg_launches"][name])}
+               "qg_launches": int(record["qg_launches"][name]),
+               "f32_launches": int(record["f32_launches"][name]),
+               "obbt_launches": int(record["obbt_launches"][name]),
+               "qpd_launches": int(record["qpd_launches"][name])}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             row[key] = r.pop(key)

@@ -11,8 +11,13 @@ reliability-branching host loop), with the two TPU kernels of that path
 rewritten as CUDA kernels for Hopper (`ops/spd_inverse.py`,
 `ops/spd_solve.py`, sources in `csrc/`); the NL relaxation path; and
 the QG/OA path (`bnb/qg.py`, `bnb/oa.py`, root linearizations, the
-pump, the dives and multistart) with its solver entry points.  Paths
-outside these slices raise NotImplementedError; ROADMAP.md lists them.
+pump, the dives and multistart) with its solver entry points; and every
+other option of `mbnb` (the C++ node store in `native/`, checkpoints,
+SOS, the weak brancher, OBBT, the f32 light phase, Gondzio correctors,
+the QPD node processor, the root heuristics) with the sweep harness
+`tools/sweep.py`.  What is left (global, multi-device, the
+device-resident node pool behind `device_tree`) is listed in ROADMAP.md;
+`device_tree` raises NotImplementedError.
 """
 
 from . import utils  # noqa: F401

@@ -10,11 +10,11 @@ BranchAndBound.cpp:274-296 (gap/time/node/sol limits).
 
 Port of minotaur_tpu/bnb/bnb.py.  The host code is the JAX package's, as
 it is; only the device seam changes (`_step`, `_device_consts`,
-`_dispatch_step`/`_fetch_step`), and the device is named by the caller
-(`device=`, default "cuda").  Options the port does not have yet raise
-NotImplementedError in the constructor (a subclass that applies one
-itself lists it in `_handled_options`), and the code paths only they
-reach are left out.
+`_dispatch_step`/`_fetch_step`, `_qpd_consts`, `_weak_select`'s
+lane-batched FBBT), and the device is named by the caller (`device=`,
+default "cuda").  The one option the port does not have, `device_tree`
+(the JAX package's device-resident node pool, off by default there),
+raises NotImplementedError in the constructor.
 """
 
 from __future__ import annotations
@@ -40,32 +40,17 @@ from .tree import TreeManager
 
 _INF = float("inf")
 
-# option -> value that leaves the slice
-_UNPORTED_OPTIONS = (
-    ("device_tree", True), ("obbt", True),
-    ("divheur", True), ("msheur", True), ("samplingheur", True),
-    ("fixvarsheur", True), ("qpdheur", True), ("fpump", True),
-    ("nodeproc", "qpd"), ("brancher", "weak"), ("dtype", "f32"),
-    ("persp_ref", True),
-)
+# option -> value that leaves the port
+_UNPORTED_OPTIONS = (("device_tree", True),)
 
 
-def _check_unported(opts, problem: Problem, handled=()) -> None:
-    """Raise for options outside the port; `handled` names the ones the
-    calling driver applies itself (QG: persp_ref, fpump)."""
+def _check_unported(opts) -> None:
+    """Raise for options outside the port."""
     for name, bad in _UNPORTED_OPTIONS:
-        if name in handled:
-            continue
         val = opts.get(name)
         if (bool(val) if bad is True else str(val) == bad):
             raise NotImplementedError(
                 f"{name}={val}: not yet ported, see ROADMAP.md")
-    if opts.get("checkpoint_file"):
-        raise NotImplementedError(
-            "checkpointing: not yet ported, see ROADMAP.md")
-    if problem._sos1 or problem._sos2:
-        raise NotImplementedError("SOS constraints: not yet ported, see "
-                                  "ROADMAP.md")
 
 
 @dataclasses.dataclass
@@ -94,9 +79,6 @@ class BabStats:
 
 
 class BranchAndBound:
-    # options of _UNPORTED_OPTIONS that a subclass applies itself
-    _handled_options: tuple = ()
-
     def __init__(self, problem: Problem, env: Optional[Environment] = None,
                  staged: Optional[StagedProblem] = None, device="cuda"):
         self.env = env or Environment()
@@ -104,7 +86,7 @@ class BranchAndBound:
         self.problem_original = problem
         self.postsolve = None
         opts = self.env.options
-        _check_unported(opts, problem, self._handled_options)
+        _check_unported(opts)
         if staged is None and opts.get("presolve_subst"):
             # root substitution/elimination presolve (reference:
             # LinearHandler::substVars_ LinearHandler.cpp:1429 +
@@ -125,8 +107,7 @@ class BranchAndBound:
             # structure-rewriting nonlinear presolve (must run BEFORE
             # staging): big-M sum-of-squares rows tighten to their
             # second-order-cone form (reference NlPresHandler::
-            # quadConeRef_, NlPresHandler.cpp:1135).  persp_ref raises
-            # in _check_unported.
+            # quadConeRef_, NlPresHandler.cpp:1135)
             from .nlpres import quad_cone_reform
             ncr = quad_cone_reform(problem, int_tol=float(
                 opts.get("int_tol")) if opts.get("int_tol") else 1e-6)
@@ -134,6 +115,13 @@ class BranchAndBound:
                 self.env.logger.info(
                     f"presolve: {ncr} big-M sum-of-squares rows "
                     f"reformulated to cone form (quadConeRef)")
+            if opts.get("persp_ref"):
+                from .persp import perspective_reform
+                npr = perspective_reform(problem)
+                if npr:
+                    self.env.logger.info(
+                        f"presolve: {npr} on/off rows perspective-"
+                        f"reformulated (perspRef)")
         self.sp = staged or stage_problem(problem)
         order = {"dfs": TreeSearchOrder.DFS, "bfs": TreeSearchOrder.BFS,
                  "BthenD": TreeSearchOrder.BEST_THEN_DIVE}.get(
@@ -192,6 +180,27 @@ class BranchAndBound:
                            **dt_kw))
         self._step = build_node_step(self.sp, step_opts, self.device)
         self._step_opts = step_opts
+        # QPD node processor (reference QPDProcessor.{h,cpp}, 2136 LoC):
+        # nodes are processed on a PSD-projected QP model of the MINLP
+        # (one batched QP superstep instead of NLP solves); prune and
+        # incumbent decisions are VERIFIED on the true model
+        # (_qpd_verify).  FBBT inside the QP step is disabled — interval
+        # tightening against LINEARIZED rows is not valid for the true
+        # feasible set; verified lanes get true-model FBBT boxes.
+        self._qpd_step = None
+        self._qpd_dev = None
+        self._qpd_verified = 0
+        if str(opts.get("nodeproc")) == "qpd" and \
+                (len(self.sp.nl_rows) or self.sp.obj_nl is not None):
+            from .qpd import build_qp_approx
+            xr = 0.5 * (np.where(np.isfinite(self.sp.vlb),
+                                 self.sp.vlb, -1.0) +
+                        np.where(np.isfinite(self.sp.vub),
+                                 self.sp.vub, 1.0))
+            self.sp_qp = build_qp_approx(self.sp, xr)
+            self._qpd_step = build_node_step(
+                self.sp_qp, dataclasses.replace(step_opts, fbbt_rounds=0),
+                self.device)
         self._is_lp_relax = self.sp.is_lp_relaxable
         # PSD-QP relaxations also get certified dual bounds from the
         # engine (eigendecomposition-based; engines/ipm.py qp_cert_bound)
@@ -242,14 +251,14 @@ class BranchAndBound:
 
     # ------------------------------------------------------------- bounds
     def _make_tree(self, order, vbc):
-        """Active-node store: the Python heap.  The JAX package's C++ slab
-        store (option `native_tree`) is not ported yet; like the JAX
-        driver when that store does not build, the port falls back to
-        the Python heap, and says so once."""
+        """Active-node store: the C++ slab store (option `native_tree`,
+        reference NodeHeap analogue), else the Python heap.  Unlike the
+        JAX driver, a store that does not build raises (with the
+        compiler's message) instead of falling back to the heap."""
         if self.env.options.get("native_tree"):
-            self.env.logger.info("native_tree: the C++ node store is not "
-                                 "yet ported (see ROADMAP.md); using the "
-                                 "python heap")
+            from .tree import NativeTreeManager
+            return NativeTreeManager(order, vbc_stream=vbc,
+                                     n=self.sp.n, m=self.sp.m)
         return TreeManager(order, vbc_stream=vbc)
 
     @property
@@ -340,16 +349,33 @@ class BranchAndBound:
         t0 = time.monotonic()
         last_log = t0
         opts = self.env.options
+        last_ckpt = t0
         self.status = SolveStatus.STARTED
-        if self._root_presolve() is not None:
+        ckpt_file = opts.get("checkpoint_file")
+        ckpt_interval = float(opts.get("checkpoint_interval"))
+        resumed = False
+        if ckpt_file and opts.get("resume"):
+            import os
+            if os.path.exists(ckpt_file):
+                from .checkpoint import load_checkpoint
+                load_checkpoint(ckpt_file, self)
+                # the checkpoint may write the master rows (QG's cut pool)
+                self._dev_consts = None
+                self._log.info(
+                    f"resumed from {ckpt_file}: {len(self.tm)} open nodes, "
+                    f"ub {self.ub:.8g}")
+                resumed = True
+        if not resumed and self._root_presolve() is not None:
             return self.status
         self._strong_branch_done = False
-        root = Node(nid=0, depth=0, lb=getattr(self, "_root_lb0", -_INF),
-                    vlb=self.sp.vlb.copy(), vub=self.sp.vub.copy(),
-                    warm_x=(self.problem.initial_point.copy()
-                            if self.problem.initial_point is not None
-                            else None))
-        self.tm.insert_root(root)
+        if not resumed:
+            root = Node(nid=0, depth=0, lb=getattr(self, "_root_lb0",
+                                                   -_INF),
+                        vlb=self.sp.vlb.copy(), vub=self.sp.vub.copy(),
+                        warm_x=(self.problem.initial_point.copy()
+                                if self.problem.initial_point is not None
+                                else None))
+            self.tm.insert_root(root)
         next_id = max((nd.nid for nd in self.tm.iter_nodes()),
                       default=-1) + 1
 
@@ -378,13 +404,21 @@ class BranchAndBound:
                 prep = self._prepare_batch()
                 if prep is not None:
                     batch, probes, arrays = prep
-                    handle = self._dispatch_step(*arrays)
+                    handle = self._dispatch_step(
+                        *arrays, qpd=True,
+                        qpd_force=[nd.lb <= -1e19 for nd in batch])
                     cur = (batch, probes, handle, t_d0)
             if not pipeline and cur is not None:
                 # serial mode: process immediately, nothing stays in flight
                 next_id = self._finish_batch(cur, next_id)
                 cur = None
             if pending is not None:
+                # the batch just dispatched is popped from the tree, so
+                # the global bound that _finish_batch computes must count
+                # its nodes (the JAX loop counts the finished batch's
+                # instead, and can stop SOLVED_OPTIMAL with open nodes
+                # below the incumbent: ROADMAP Queue 3, clay2_3a)
+                self._inflight_nodes = cur[0] if cur is not None else []
                 next_id = self._finish_batch(pending, next_id)
             pending = cur
             self._inflight_nodes = pending[0] if pending is not None else []
@@ -396,6 +430,16 @@ class BranchAndBound:
                     f"  {now - t0:8.1f}s  nodes {self.stats.nodes_processed:8d} "
                     f"open {len(self.tm):7d}  lb {self.lb:.8g}  ub {self.ub:.8g} "
                     f" gap {self._gap() * 100:.4g}%")
+            if ckpt_file and now - last_ckpt >= ckpt_interval:
+                # flush the pipeline first: in-flight nodes are popped
+                # from the tree and would be LOST by a resume otherwise
+                if pending is not None:
+                    next_id = self._finish_batch(pending, next_id)
+                    pending = None
+                    self._inflight_nodes = []
+                last_ckpt = now
+                from .checkpoint import save_checkpoint
+                save_checkpoint(ckpt_file, self)
         # drain the pipeline on any exit path (results are already
         # computed; discarding them would lose popped subtrees' bounds)
         if pending is not None:
@@ -508,17 +552,99 @@ class BranchAndBound:
         that edit them after the first superstep)."""
         return 0
 
-    def _dispatch_step(self, vlb_b, vub_b, x0_b, y0_b=None):
-        """Enqueue one superstep; returns a handle for _fetch_step (the
-        packed result tensor, still on the device)."""
+    def _dispatch_step(self, vlb_b, vub_b, x0_b, y0_b=None, qpd=False,
+                       qpd_force=None):
+        """Enqueue one superstep; returns a handle for _fetch_step.  With
+        qpd=True and the QPD node processor active, the batch is solved
+        on the QP model and verified on the true model at fetch time
+        (heuristic/probe/dive callers keep the true model: their
+        semantics assume it)."""
         if y0_b is None:
             y0_b = np.zeros((vlb_b.shape[0], self.sp.m))
+        if qpd and self._qpd_step is not None:
+            Aq, clbq, cubq = self._qpd_consts()
+            return ("qp", self._qpd_step.dispatch(
+                Aq, clbq, cubq, vlb_b, vub_b, x0_b, y0_b),
+                (vlb_b, vub_b, x0_b, y0_b, qpd_force))
         A, clb, cub = self._device_consts()
-        return self._step.dispatch(A, clb, cub, vlb_b, vub_b, x0_b, y0_b)
+        return ("true", self._step.dispatch(A, clb, cub, vlb_b, vub_b,
+                                            x0_b, y0_b))
 
     def _fetch_step(self, handle):
-        """The one device-to-host copy of a superstep's packed result."""
-        return self._step.unpack(handle)
+        """The one device-to-host copy of a superstep's packed result
+        (then, for a QP-model batch, the true-model verification)."""
+        kind, packed = handle[0], handle[1]
+        if kind == "qp":
+            res_qp = self._qpd_step.unpack(packed)
+            return self._qpd_verify(res_qp, handle[2])
+        return self._step.unpack(packed)
+
+    def _qpd_consts(self):
+        """Device copies of the QP model's (A, clb, cub)."""
+        if self._qpd_dev is None:
+            t = lambda a: torch.tensor(a, dtype=F64,  # noqa: E731
+                                       device=self.device)
+            self._qpd_dev = (t(self.sp_qp.A), t(self.sp_qp.clb),
+                             t(self.sp_qp.cub))
+        return self._qpd_dev
+
+    def _qpd_relinearize(self, x_ref: np.ndarray) -> None:
+        """Re-linearize the QP model's nonlinear rows at x_ref (the
+        reference rebuilds its QP approximation as it descends,
+        QPDProcessor.cpp); only the quadratic objective stays anchored
+        at the initial reference point."""
+        from .qpd import qp_row_linearization
+        A, clb, cub = qp_row_linearization(self.sp, x_ref)
+        self.sp_qp.A[:], self.sp_qp.clb[:], self.sp_qp.cub[:] = A, clb, cub
+        self._qpd_dev = None
+
+    def _qpd_verify(self, res, inputs):
+        """QPDProcessor prune guard (reference QPDProcessor.cpp:
+        processQP_/solveNLP_): the QP model is NOT a relaxation of the
+        MINLP, so any lane whose QP result would PRUNE the node
+        (infeasible, or bound above the cutoff) or ACCEPT an incumbent
+        (integral point) is re-solved on the TRUE model before the
+        decision; every other lane keeps the QP point for BRANCHING
+        only — status forced to ITERATION_LIMIT with a -inf dual bound,
+        which makes _process_result branch from the parent bound and
+        never prune on QP data."""
+        from .step import StepResult
+        vlb_b, vub_b, x0_b, y0_b, force = inputs
+        B = vlb_b.shape[0]
+        status = np.array(res.status)
+        db = np.array(res.dual_bound)
+        cutoff = self._cutoff()
+        # force: lanes that must resolve on the true model regardless —
+        # nodes without a finite inherited bound (the root generation:
+        # their true bound seeds the lb cone) and dead-end lanes
+        # (bvar < 0: an unverified dead end would cap unresolved_lb at
+        # -inf forever)
+        need = ((status == EngineStatus.SOLVED_INFEASIBLE) |
+                (db >= cutoff) | np.array(res.int_feasible) |
+                (np.array(res.branch_var) < 0))
+        if force is not None:
+            need[:len(force)] |= np.asarray(force, dtype=bool)
+        idx = np.where(need)[0]
+        fields = {f: np.array(getattr(res, f)) for f in res._fields}
+        if len(idx):
+            k = len(idx)
+            bucket = 1
+            while bucket < k:
+                bucket *= 4
+            pick = np.concatenate([idx, np.full(bucket - k, idx[0],
+                                                dtype=idx.dtype)])
+            A, clb, cub = self._device_consts()
+            r = self._step(A, clb, cub, vlb_b[pick], vub_b[pick],
+                           np.array(res.x)[pick], np.array(res.y)[pick])
+            self.stats.solves += k
+            self._qpd_verified += k
+            for fname in res._fields:
+                fields[fname][idx] = np.asarray(getattr(r, fname))[:k]
+        other = np.setdiff1d(np.arange(B), idx)
+        fields["status"][other] = int(EngineStatus.ITERATION_LIMIT)
+        fields["dual_bound"][other] = -_INF
+        fields["int_feasible"][other] = False
+        return StepResult(**fields)
 
     def _expand_batch(self, batch: List[Node]) -> List[Node]:
         """Lane-expansion hook: MsBranchAndBound replicates each node
@@ -611,6 +737,13 @@ class BranchAndBound:
                 i_best = int(np.argmin(np.where(finite, obj, np.inf)))
                 self._try_round_incumbent(xs[i_best], nvlb[i_best],
                                           nvub[i_best])
+                # in-tree QP diving (reference QPDProcessor processes
+                # nodes on a QP model of the NLP; here dives launch from
+                # tree nodes' boxes, not only the root — `qpdheur`)
+                if self.env.options.get("qpdheur") and \
+                        not self._is_lp_relax and \
+                        self.stats.batches % 24 == 1:
+                    self._qpd_dive(xs[i_best], nvlb[i_best], nvub[i_best])
         for i, node in enumerate(batch):
             if id(node) in seen:
                 continue  # padding duplicate
@@ -710,6 +843,31 @@ class BranchAndBound:
             node.status = NodeStatus.PRUNED_BY_BOUND
             return next_id
 
+        # SOS enforcement (reference: SOS1Handler/SOS2Handler set-partition
+        # branching): runs before incumbent acceptance
+        if int_feas and (self.problem._sos1 or self.problem._sos2):
+            sos_branch = self._check_sos(x, nvlb, nvub)
+            if sos_branch is not None:
+                side_vars_a, side_vars_b = sos_branch
+                child_bound = max(node.lb, bound_for_prune)
+                children = []
+                for side, kill in enumerate((side_vars_a, side_vars_b)):
+                    cvlb = nvlb.copy()
+                    cvub = nvub.copy()
+                    for j in kill:
+                        if cvlb[j] <= 0.0 <= cvub[j]:
+                            cvlb[j] = 0.0
+                            cvub[j] = 0.0
+                    children.append(Node(
+                        nid=next_id + side, depth=node.depth + 1,
+                        lb=child_bound, vlb=cvlb, vub=cvub, warm_x=x.copy(),
+                        warm_y=self._lane_warm_y(), vio_val=node.vio_val,
+                        pred_iters=self._lane_iters_val(),
+                        pc_trail=node.pc_trail))
+                node.status = NodeStatus.BRANCHED
+                self.tm.branch(children, node)
+                return next_id + 2
+
         if int_feas and status in (EngineStatus.SOLVED_OPTIMAL,
                                    EngineStatus.ITERATION_LIMIT):
             # relaxation solution is MINLP-feasible: candidate incumbent.
@@ -762,6 +920,12 @@ class BranchAndBound:
         # Runs on ANY finite root point — an ITERATION_LIMIT root (f32
         # tail floor) still carries a perfectly roundable near-solution,
         # and skipping it left the whole tree incumbent-less (round 1).
+        if node.nid == 0 and self._qpd_step is not None and \
+                np.all(np.isfinite(x)):
+            # anchor the QP model at the root relaxation solution (the
+            # initial build used the box midpoint); traced rows make
+            # this refresh recompile-free
+            self._qpd_relinearize(x)
         if node.nid == 0 and self.ub >= _INF and \
                 self.sp.int_mask.any() and np.all(np.isfinite(x)):
             self._root_rounding(x, nvlb, nvub)
@@ -837,6 +1001,28 @@ class BranchAndBound:
             self.tm.prune_by_cutoff()
             return True
         return False
+
+    def _check_sos(self, x: np.ndarray, nvlb, nvub, tol: float = 1e-6):
+        """If an SOS set is violated at x, return the two variable groups
+        to zero out in the children (reference: SOS1Handler::getBranches /
+        SOS2Handler set-partition branching); else None."""
+        for weights, vs in self.problem._sos1:
+            nz = [j for j in vs if abs(x[j]) > tol and nvub[j] > tol]
+            if len(nz) > 1:
+                # split at the weighted midpoint of the nonzeros
+                mid = len(nz) // 2
+                order = sorted(nz, key=lambda j: weights[vs.index(j)]
+                               if j in vs else 0.0)
+                return order[mid:], order[:mid]
+        for weights, vs in self.problem._sos2:
+            nz = [i for i, j in enumerate(vs)
+                  if abs(x[j]) > tol and nvub[j] > tol]
+            if len(nz) > 2 or (len(nz) == 2 and nz[1] - nz[0] != 1):
+                mid = (nz[0] + nz[-1]) // 2
+                # SOS2: children forbid vars strictly right/left of mid
+                return [vs[i] for i in range(mid + 1, len(vs))], \
+                       [vs[i] for i in range(0, mid)]
+        return None
 
     @property
     def _partition_rows(self):
@@ -943,11 +1129,86 @@ class BranchAndBound:
                     cand, float(self.problem.eval_objective(cand)))
         return found
 
+    def _root_dive(self, x: np.ndarray, nvlb: np.ndarray,
+                   nvub: np.ndarray, lanes: int = 8, rounds: int = 16
+                   ) -> None:
+        """Fractional diving at the root (reference: MINLPDiving.cpp,
+        `divheur`): each lane progressively fixes its least-fractional
+        unfixed integers and re-solves through the fused superstep; the
+        FBBT inside the step propagates fixings for free.  Lanes differ
+        by tie-break noise.  Fully-fixed feasible lanes become incumbent
+        candidates (rounded + repaired)."""
+        ints = np.where(self.sp.int_mask)[0]
+        if len(ints) == 0 or not np.all(np.isfinite(x)):
+            return
+        if getattr(self, "_pad_full", False):
+            lanes = self._batch   # reuse the single compiled bucket
+        from .heuristics import (dive_round, dive_scheme_for_lane,
+                                 dive_scores)
+        scheme_opt = str(self.env.options.get("divheur_scheme"))
+        schemes = [dive_scheme_for_lane(scheme_opt, b) for b in range(lanes)]
+        grad_c = self.sp.c.copy()
+        if self.sp.Qobj is not None:
+            grad_c = grad_c + 2.0 * (self.sp.Qobj @ x)
+        ncols = (self.sp.A != 0).sum(axis=0).astype(float)
+        avg_rc = np.zeros(self.sp.n)    # filled from lane duals below
+        rng = np.random.default_rng(int(self.env.options.get("rand_seed"))
+                                    + 23)
+        vlb = np.tile(nvlb, (lanes, 1))
+        vub = np.tile(nvub, (lanes, 1))
+        xs = np.tile(x, (lanes, 1))
+        alive = np.ones(lanes, dtype=bool)
+        for r in range(rounds):
+            unfixed = (vub[:, ints] - vlb[:, ints]) > 0.5
+            n_unfixed = unfixed.sum(axis=1)
+            for b in np.where(alive)[0]:
+                nu = int(n_unfixed[b])
+                if nu == 0 or not np.isfinite(xs[b]).all():
+                    continue
+                k = max(1, nu // max(2, rounds - 1 - r))
+                frac = np.abs(xs[b, ints] - np.round(xs[b, ints]))
+                score = dive_scores(schemes[b], xs[b], ints, frac,
+                                    grad_c, ncols, avg_rc)
+                if schemes[b] == "frac" and b:
+                    score = score + rng.uniform(0, 0.05, size=len(ints))
+                score = np.where(unfixed[b], score, np.inf)
+                pick = ints[np.argsort(score)[:k]]
+                direction = "nearest" if scheme_opt == "frac" else \
+                    ("nearest", "ceil", "floor", "farthest")[(b // 4) % 4]
+                v = np.clip(dive_round(direction, xs[b, pick],
+                                       self._int_tol),
+                            vlb[b, pick], vub[b, pick])
+                vlb[b, pick] = v
+                vub[b, pick] = v
+            res = self._run_step(vlb, vub, xs)
+            self.stats.solves += lanes
+            status = np.asarray(res.status)
+            db = np.asarray(res.dual_bound)
+            xs = np.asarray(res.x)
+            if any(s == "rcost" for s in schemes):
+                # running-average reduced costs over lanes+rounds
+                # (reference avgDual_, MINLPDiving.cpp:286-292)
+                rc = grad_c[None, :] - np.asarray(res.y) @ self.sp.A
+                avg_rc = (avg_rc * r + rc.mean(axis=0)) / (r + 1)
+            vlb = np.asarray(res.new_vlb).copy()
+            vub = np.asarray(res.new_vub).copy()
+            alive &= (status != EngineStatus.SOLVED_INFEASIBLE) & (db < 1e15)
+            if not alive.any():
+                return
+            done = alive & \
+                ((vub[:, ints] - vlb[:, ints]) <= 0.5).all(axis=1)
+            for b in np.where(done)[0]:
+                self._try_round_incumbent(xs[b], vlb[b], vub[b])
+                alive[b] = False
+            if not alive.any():
+                return
+
     def _root_rounding(self, x: np.ndarray, nvlb, nvub) -> None:
         """Cheap root incumbents from (partition-repaired) roundings —
         no extra solves, just host evaluation."""
         self._try_round_incumbent(x, nvlb, nvub)
         opts = self.env.options
+        seed = int(opts.get("rand_seed"))
         if opts.get("trimloss_heur") and self.ub >= _INF:
             from .trimloss import construct_trimloss
             try:
@@ -956,8 +1217,55 @@ class BranchAndBound:
                 r = None
             if r is not None:
                 self._accept_incumbent(r[0], r[1])
-        # divheur / msheur / samplingheur / fixvarsheur / qpdheur raise in
-        # the constructor: the plain B&B does not run them yet
+        if opts.get("divheur"):
+            self._root_dive(x, nvlb, nvub)
+        if opts.get("msheur"):
+            # multistart heuristic (reference NLPMultiStart): best of many
+            # random-start relaxation solves, rounded+repaired
+            from .multistart import multistart_solve
+            bx, bobj, _ = multistart_solve(
+                self.sp, self.problem, n_starts=16, seed=seed,
+                vlb=nvlb, vub=nvub, device=self.device)
+            if bx is not None:
+                self._try_round_incumbent(bx, nvlb, nvub)
+        if opts.get("samplingheur"):
+            from .heuristics import SamplingHeur
+            for xx, val in SamplingHeur(self.problem, self.sp,
+                                        seed=seed).run(
+                    nvlb, nvub, around=x, int_tol=self._int_tol):
+                self._accept_incumbent(xx, val)
+        if opts.get("fixvarsheur"):
+            from .heuristics import FixVarsHeur
+            fv = FixVarsHeur(self.problem, self.sp,
+                             ipm=IPMOptions(
+                                 max_iters=int(opts.get("ipm_max_iters")),
+                                 tol=float(opts.get("ipm_tol"))),
+                             seed=seed, device=self.device)
+            for xx, val in fv.run(nvlb, nvub, x, int_tol=self._int_tol):
+                self._accept_incumbent(xx, val)
+        if opts.get("qpdheur") and not self._is_lp_relax and \
+                np.all(np.isfinite(x)):
+            self._qpd_dive(x, nvlb, nvub)
+
+    def _qpd_dive(self, x: np.ndarray, nvlb, nvub) -> None:
+        """Population QP diving from a relaxation point (reference
+        QPDProcessor's QP-model node processing, as an in-tree primal
+        heuristic).  The QP model is built once at the first call's
+        point and reused (the reference rebuilds per dive; the model
+        only seeds fixings, never bounds, so staleness is benign)."""
+        if not np.all(np.isfinite(x)):
+            return
+        opts = self.env.options
+        if not hasattr(self, "_qpd"):
+            from .qpd import QPDiver
+            self._qpd = QPDiver(self.problem, self.sp, x,
+                                ipm=IPMOptions(
+                                    max_iters=int(opts.get("ipm_max_iters")),
+                                    tol=float(opts.get("ipm_tol"))),
+                                device=self.device)
+        for xx, val in self._qpd.run(nvlb, nvub, x,
+                                     int_tol=self._int_tol):
+            self._accept_incumbent(xx, val)
 
     def _strong_branch_init(self, x: np.ndarray, nvlb: np.ndarray,
                             nvub: np.ndarray, obj: float) -> None:
@@ -1221,6 +1529,8 @@ class BranchAndBound:
             best = freq.max()
             tied = cand[freq == best]
             j = tied[int(np.argmax(frac[tied]))]   # tie-break: most frac
+        elif rule == "weak":
+            j = self._weak_select(x, nvlb, nvub, cand, frac)
         elif rule == "unambrel":
             j = self._unambrel_select(x, cand, node)
         else:
@@ -1245,6 +1555,57 @@ class BranchAndBound:
                     w * fr2 / max(fr2.max(), 1e-12)
             j = cand[int(np.argmax(score))]
         return int(j), float(x[j])
+
+    def _weak_select(self, x: np.ndarray, nvlb, nvub, cand, frac) -> int:
+        """WeakBrancher scoring (reference WeakBrancher.cpp:59-116,
+        273-350): for each candidate's down/up child, apply the branch
+        bound, propagate it with ONE vectorized linear-FBBT sweep (the
+        analogue of the handlers' getStrongerMods pass), and price the
+        resulting bound changes against the node's reduced costs:
+        obj_change = sum_v max(0, rc_v * dlb_v) [rc_v>0]
+                   + sum_v max(0, rc_v * dub_v) [rc_v<0]
+        Score = 0.8*min(up,down) + 0.2*max (getScore_ :273).  No engine
+        solves — this is the whole point of weak branching.  All 2K child
+        boxes ride one lane-batched sweep on the device.  Deviation from the
+        reference: an FBBT-infeasible child scores BIG (the reference
+        zeroes it, but an infeasible child means branching there prunes
+        half the subtree — strictly better information)."""
+        y = getattr(self, "_lane_y", None)
+        if y is None:
+            return int(cand[int(np.argmax(frac[cand]))])
+        sp = self.sp
+        gc = sp.c.copy()
+        if sp.Qobj is not None:
+            gc = gc + 2.0 * (sp.Qobj @ x)
+        rc = gc - np.asarray(y, dtype=np.float64) @ sp.A
+        K = min(2 * max(1, int(self.env.options.get("rel_cands"))),
+                len(cand))
+        top = cand[np.argsort(-frac[cand])[:K]]
+        B = 2 * K
+        lo = np.tile(nvlb, (B, 1))
+        hi = np.tile(nvub, (B, 1))
+        for i, j in enumerate(top):
+            hi[2 * i, j] = math.floor(x[j])        # down child
+            lo[2 * i + 1, j] = math.ceil(x[j])     # up child
+        from ..ops.interval import linear_fbbt
+        A, clb, cub = self._device_consts()
+        t = lambda a: torch.as_tensor(a, dtype=F64,  # noqa: E731
+                                      device=self.device)
+        nlo, nhi, infeas = linear_fbbt(A, clb, cub, t(lo), t(hi))
+        nlo = nlo.cpu().numpy()
+        nhi = nhi.cpu().numpy()
+        infeas = infeas.cpu().numpy()
+        pos = rc > 1e-7
+        neg = rc < -1e-7
+        dlb = np.where(np.isfinite(nlo) & np.isfinite(lo), nlo - lo, 0.0)
+        dub = np.where(np.isfinite(nhi) & np.isfinite(hi), nhi - hi, 0.0)
+        chg = np.maximum(rc[None, :] * dlb, 0.0) * pos[None, :] + \
+            np.maximum(rc[None, :] * dub, 0.0) * neg[None, :]
+        change = chg.sum(axis=1)
+        change = np.where(infeas, 1e12, change)
+        dn, up = change[0::2], change[1::2]
+        score = 0.8 * np.minimum(dn, up) + 0.2 * np.maximum(dn, up)
+        return int(top[int(np.argmax(score))])
 
     def _unambrel_select(self, x: np.ndarray, cand,
                          node: Optional[Node]) -> int:

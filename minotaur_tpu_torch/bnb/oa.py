@@ -160,11 +160,6 @@ class OABranchAndBound(QGBranchAndBound):
 class _MasterMILP(BranchAndBound):
     """One master MILP solve over the OA cut pool (no separation)."""
 
-    # the OA driver applied persp_ref before staging the master it hands
-    # over, and fpump has no effect on a staged master (as in the JAX
-    # package, whose B&B reads neither for a staged problem)
-    _handled_options = ("persp_ref", "fpump")
-
     def __init__(self, oa: OABranchAndBound):
         super().__init__(oa.problem, env=oa.env, staged=oa.sp,
                          device=oa.device)

@@ -4,8 +4,11 @@ Port of minotaur_tpu/bnb/presolve.py.  `linear_presolve`,
 `nl_coef_improve` and the unsafe-variable scan are host code as in the
 JAX package (the interval sweeps of `nl_coef_improve` run on the CPU);
 `presolve` runs the FBBT fixpoint, nonlinear rows included, with two
-batched sweeps (one lane) per call on the port's device.  OBBT is not
-ported yet.
+batched sweeps (one lane) per call on the port's device.  `obbt` solves
+all 2n bound LPs of the linear relaxation as one lane-batched IPM call
+(one lane per LP, 2n lanes of K1 and K2) and tightens with their
+certified dual bounds (reference QuadHandler::tightenLP_,
+QuadHandler.cpp:2218, solves them one at a time).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from ..device import F64, resolve_device
-from ..engines.ipm import IPMOptions
+from ..engines.ipm import IPMOptions, build_single_solver
 from ..engines.staging import StagedProblem
 from ..ir.problem import Problem
 from ..ops.interval import stage_interval
@@ -64,6 +67,7 @@ class Presolver:
 
         self._sweep2 = run
         self._ipm = ipm
+        self._obbt_solver = None
         # variables that linear-only reasoning may NOT touch: anything in
         # a nonlinear/quadratic body (its constraint is not fully visible
         # in A), anything in the objective when the objective has a
@@ -384,5 +388,45 @@ class Presolver:
                     "presolve cut off the debug solution (FBBT bug)")
         return SolveStatus.FINISHED, vlb, vub
 
-    def obbt(self, vlb: np.ndarray, vub: np.ndarray):
-        raise NotImplementedError("obbt: not yet ported, see ROADMAP.md")
+    # ------------------------------------------------------------- OBBT
+    def obbt(self, vlb: np.ndarray, vub: np.ndarray
+             ) -> Tuple[np.ndarray, np.ndarray]:
+        """Optimality-based bound tightening over the LINEAR relaxation:
+        min/max each variable subject to the linear rows.  One
+        lane-batched solve of 2n LPs (lane j minimizes x_j, lane n + j
+        maximizes it)."""
+        sp = self.sp
+        n = sp.n
+        if self._obbt_solver is None:
+            # linear-only staged view: nonlinear rows vacuous
+            lin = dataclasses.replace(
+                sp, Qobj=None, obj_nl=None, con_nl=None, nl_graphs=[],
+                nl_rows=np.zeros(0, np.int32), nl_Q=[], nl_body=[],
+                obj_graph=None, clb=sp.clb.copy(), cub=sp.cub.copy())
+            for r in sp.nl_rows:
+                lin.clb[r] = -_INF
+                lin.cub[r] = _INF
+            self._obbt_solver = (lin, build_single_solver(
+                lin, self._ipm, self.device).with_objective)
+        lin, solver = self._obbt_solver
+        t = lambda a: torch.as_tensor(a, dtype=F64,  # noqa: E731
+                                      device=self.device)
+        cs = np.zeros((2 * n, n))
+        cs[np.arange(n), np.arange(n)] = 1.0       # min x_j
+        cs[n + np.arange(n), np.arange(n)] = -1.0  # min -x_j = max x_j
+        res = solver(t(lin.A), t(lin.clb), t(lin.cub),
+                     t(np.tile(vlb, (2 * n, 1))), t(np.tile(vub, (2 * n, 1))),
+                     t(np.zeros((2 * n, n))), t(cs))
+        db = res.dual_bound.cpu().numpy()  # certified lower bounds
+        new_lo = np.maximum(vlb, db[:n] - lin.obj_const - 1e-9)
+        new_hi = np.minimum(vub, -(db[n:] - lin.obj_const) + 1e-9)
+        ok = new_lo <= new_hi + 1e-9
+        new_lo = np.where(ok, new_lo, vlb)
+        new_hi = np.where(ok, new_hi, vub)
+        self.stats.obbt_tightened += int(
+            np.sum(new_lo > vlb + 1e-7) + np.sum(new_hi < vub - 1e-7))
+        if self.problem.debug_sol is not None and \
+                not np.all((self.problem.debug_sol >= new_lo - 1e-6) &
+                           (self.problem.debug_sol <= new_hi + 1e-6)):
+            raise AssertionError("OBBT cut off the debug solution")
+        return new_lo, new_hi

@@ -99,9 +99,6 @@ def _build_master(sp: StagedProblem, max_cuts: int) -> StagedProblem:
 class QGBranchAndBound(BranchAndBound):
     """LP-tree branch-and-cut with NLP separation oracle."""
 
-    # QG applies persp_ref itself (before staging) and always pumps
-    _handled_options = ("persp_ref", "fpump")
-
     def __init__(self, problem: Problem, env: Optional[Environment] = None,
                  device="cuda"):
         env = env or Environment()

@@ -155,3 +155,119 @@ class TreeManager:
             self._vbc.write(f"P {node.nid + 1} {parent} {state}\n")
         else:
             self._vbc.write(f"P {node.nid + 1} {state}\n")
+
+
+class NativeTreeManager(TreeManager):
+    """TreeManager backed by the C++ slab store (native/treestore.cpp).
+
+    Nodes live in contiguous C++ arrays instead of a Python heap of
+    objects — at 10^5+ open nodes the Python store pays GC pressure and
+    per-object numpy overhead on every push/pop (reference analogue: the
+    C++ NodeHeap the whole reference tree runs on).  The interface is
+    identical; pops rebuild lightweight Node views from the slabs.
+
+    Raises RuntimeError (with the compiler's message) when the native
+    library cannot build; the driver does not fall back to the heap.
+    """
+
+    def __init__(self, order: TreeSearchOrder = TreeSearchOrder.BEST_THEN_DIVE,
+                 vbc_stream: Optional[TextIO] = None, n: int = 0, m: int = 0):
+        super().__init__(order, vbc_stream)
+        from .. import native
+        self._ts = native.NativeTreeStore(n, m, int(self.order))
+        self._scal = native
+        self.n = n
+        self.m = m
+        del self._heap  # all storage lives in C++
+
+    def _pack_scal(self, node: Node) -> "np.ndarray":
+        import numpy as np
+        from .. import native as nt
+        s = np.zeros(nt.N_SCALARS)
+        s[nt.SCAL_NID] = node.nid
+        s[nt.SCAL_DEPTH] = node.depth
+        s[nt.SCAL_LB] = node.lb
+        s[nt.SCAL_BVAR] = node.branch_var
+        s[nt.SCAL_BDIR] = node.branch_dir
+        s[nt.SCAL_BFRAC] = node.branch_frac
+        s[nt.SCAL_VIO] = node.vio_val
+        s[nt.SCAL_PRED_ITERS] = node.pred_iters
+        s[nt.SCAL_TB] = node.tb_score
+        s[nt.SCAL_HAS_X] = 0.0 if node.warm_x is None else 1.0
+        s[nt.SCAL_HAS_Y] = 0.0 if node.warm_y is None or \
+            node.warm_y.shape[0] != self.m else 1.0
+        return s
+
+    def _push(self, node: Node) -> None:
+        wy = node.warm_y if node.warm_y is not None and \
+            node.warm_y.shape[0] == self.m else None
+        self._ts.push(self._pack_scal(node), node.vlb, node.vub,
+                      node.warm_x, wy)
+        self._seq += 1
+
+    def pop_batch(self, k: int):
+        from .. import native as nt
+        got, pruned, scal, vlb, vub, wx, wy = \
+            self._ts.pop_batch(k, self.cutoff)
+        self.nodes_pruned += pruned
+        out = []
+        for i in range(got):
+            s = scal[i]
+            out.append(Node(
+                nid=int(s[nt.SCAL_NID]), depth=int(s[nt.SCAL_DEPTH]),
+                lb=float(s[nt.SCAL_LB]), vlb=vlb[i], vub=vub[i],
+                warm_x=wx[i] if s[nt.SCAL_HAS_X] else None,
+                warm_y=wy[i] if s[nt.SCAL_HAS_Y] else None,
+                branch_var=int(s[nt.SCAL_BVAR]),
+                branch_dir=int(s[nt.SCAL_BDIR]),
+                branch_frac=float(s[nt.SCAL_BFRAC]),
+                tb_score=float(s[nt.SCAL_TB]),
+                pred_iters=int(s[nt.SCAL_PRED_ITERS]),
+                vio_val=float(s[nt.SCAL_VIO])))
+        self.nodes_processed += got
+        return out
+
+    def pop_best_nodes(self, k: int):
+        # the native heap is already best-first for bfs/BthenD; pop raw
+        saved = self.cutoff
+        self.cutoff = _INF
+        processed0 = self.nodes_processed
+        out = self.pop_batch(k)
+        self.nodes_processed = processed0  # migration is not processing
+        self.cutoff = saved
+        return out
+
+    def best_lb(self) -> float:
+        return self._ts.best_lb()
+
+    def __len__(self) -> int:
+        return len(self._ts)
+
+    def prune_by_cutoff(self) -> int:
+        dropped = self._ts.prune(self.cutoff)
+        self.nodes_pruned += dropped
+        return dropped
+
+    def iter_nodes(self):
+        """Drain + re-insert to materialize Node views (checkpointing —
+        rare; the slabs have no non-destructive iterator by design)."""
+        saved = self.cutoff
+        self.cutoff = _INF
+        processed0 = self.nodes_processed
+        nodes = []
+        while len(self._ts):
+            nodes.extend(self.pop_batch(4096))
+        self.nodes_processed = processed0
+        self.cutoff = saved
+        for nd in nodes:
+            self._push(nd)
+        return nodes
+
+    def clear(self) -> None:
+        saved = self.cutoff
+        self.cutoff = _INF
+        processed0 = self.nodes_processed
+        while len(self._ts):
+            self.pop_batch(4096)
+        self.nodes_processed = processed0
+        self.cutoff = saved

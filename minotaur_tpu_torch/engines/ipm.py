@@ -28,10 +28,15 @@ explicit inverse, once per iteration per condensed matrix) and
 CUDA device they run as hand-written CUDA kernels; on the CPU as their
 plain PyTorch versions.
 
-Out of the port (raise NotImplementedError): `light_phase1`,
-`tail_corr_f32`, `gondzio_correctors > 0`.  `use_pallas` is accepted and
-has no effect: the port always runs its own kernel (on the JAX CPU
-backend that flag is inert too).
+`light_phase1` runs phase 1's iteration arithmetic (residuals, the
+condensed matrix, the solve chain, the block corrections, the trial
+step and its Farkas test) in float32, as the JAX code's env32 does; a
+Farkas exit from that arithmetic is confirmed in float64 after the loop.
+`tail_corr_f32` computes the tail's block-correction residuals in
+float32.  `gondzio_correctors` adds the centrality corrections (LP/QP),
+each one more solve through the iteration's factorization.  `use_pallas`
+is accepted and has no effect: the port always runs its own kernel (on
+the JAX CPU backend that flag is inert too).
 """
 
 from __future__ import annotations
@@ -77,16 +82,17 @@ class IPMOptions:
     tail_factor_f32: bool = True
     tail_kkt_rounds: int = 8
     tail_tol: float = 1e-5
-    # all-f32 phase-1 iteration arithmetic: not yet ported
+    # all-f32 phase-1 iteration arithmetic (Farkas exits re-confirmed
+    # in f64 after the loop)
     light_phase1: bool = False
-    # f32 tail correction residuals: not yet ported
+    # f32 block-correction residuals in the tail
     tail_corr_f32: bool = False
     # assemble the condensed matrix in the factor dtype
     light_assembly: bool = True
     affine_kkt_rounds: Optional[int] = 1
     # NL "solved to acceptable level" threshold (Ipopt acceptable_tol)
     acceptable_tol: float = 1e-6
-    # Gondzio centrality correctors: not yet ported
+    # Gondzio centrality correctors (LP/QP): one extra solve each
     gondzio_correctors: int = 0
 
 
@@ -98,20 +104,6 @@ class IPMResult(NamedTuple):
     status: torch.Tensor      # (B,) EngineStatus codes
     iters: torch.Tensor       # (B,)
     kkt_err: torch.Tensor     # (B,)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what}: not yet ported, see ROADMAP.md")
-
-
-def check_slice(sp: StagedProblem, opts: IPMOptions) -> None:
-    """Raise for options the port does not have yet."""
-    if opts.light_phase1:
-        raise _not_ported("light_phase1")
-    if opts.tail_corr_f32:
-        raise _not_ported("tail_corr_f32")
-    if opts.gondzio_correctors > 0:
-        raise _not_ported("gondzio_correctors>0")
 
 
 def _fin(b):
@@ -151,6 +143,12 @@ def _make_spd_solver(M: torch.Tensor, opts: IPMOptions, use_f32=None,
     Returns (solve, bad) with bad (B,) bool: both factorizations failed
     and the lane got the identity."""
     k = M.shape[-1]
+    if k == 0:
+        # an LP without rows on the m-space path: nothing to factorize
+        # (the JAX code's reductions take initial values here)
+        od = out_dtype or M.dtype
+        return (lambda r: r.to(od)), \
+            torch.zeros(M.shape[0], dtype=torch.bool, device=M.device)
     diag = torch.diagonal(M, dim1=1, dim2=2)
     dmax = torch.clamp(_amax0(diag.abs()), min=1e-30)
     d = torch.sqrt(torch.maximum(diag, 1e-12 * dmax[:, None]))
@@ -232,7 +230,6 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
     lane-batched tensors (vlb, vub, x0: (B, n); y0: (B, m)); A, clb, cub
     are shared.  `solve.with_objective(A, clb, cub, vlb, vub, x0, c_in,
     y0=None)` swaps the linear objective (c_in: (n,) or (B, n))."""
-    check_slice(sp, opts)
     dev = resolve_device(device)
     check_fp32_matmul(dev)
 
@@ -270,6 +267,8 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             q_wpos = torch.as_tensor(_w > 1e-10, device=dev)
             qV_sp = _split64(q_eigV)
     PIN = 1e10 if condense_x else 1e16
+    # phase 1 in float32 arithmetic (LP/QP with f32 factors only)
+    light_on = (not has_nl) and opts.factor_f32 and opts.light_phase1
 
     obj_nl = sp.obj_nl
     con_nl = sp.con_nl
@@ -371,12 +370,27 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
         A_sp = _split64(A)
         absA32 = A32.abs()
         mx64 = torch.where(fixed_x, 0.0, 1.0).to(F64)
-        fin_clb, fin_cub = _fin(clb), _fin(cub)
-        fin_vlb, fin_vub = _fin(vlb), _fin(vub)
-        box = torch.where(fin_vub & fin_vlb,
-                          torch.maximum(vub.abs(), vlb.abs()), 1e6)
-        abs_clb = torch.where(fin_clb, clb.abs(), 0.0)
-        abs_cub = torch.where(fin_cub, cub.abs(), 0.0)
+        mx32 = mx64.to(F32)
+
+        def cert_env(dt):
+            """The row and box data of the certificates in one dtype (the
+            JAX code's env64 / env32): float64 for every sound decision,
+            float32 for the light phase's in-loop Farkas test."""
+            e_clb, e_cub = clb.to(dt), cub.to(dt)
+            e_vlb, e_vub = vlb.to(dt), vub.to(dt)
+            fc, fu = _fin(e_clb), _fin(e_cub)
+            fvl, fvu = _fin(e_vlb), _fin(e_vub)
+            return dict(
+                dt=dt, clb=e_clb, cub=e_cub, vlb=e_vlb, vub=e_vub,
+                fin_clb=fc, fin_cub=fu, fin_vlb=fvl, fin_vub=fvu,
+                box=torch.where(fvu & fvl,
+                                torch.maximum(e_vub.abs(), e_vlb.abs()), 1e6),
+                abs_clb=torch.where(fc, e_clb.abs(), 0.0),
+                abs_cub=torch.where(fu, e_cub.abs(), 0.0))
+
+        e64 = cert_env(F64)
+        e32 = cert_env(F32) if light_on else None
+        c32 = c_in.to(F32) if light_on else None
 
         def residuals(z, y, zl, zu):
             if has_nl:
@@ -387,6 +401,18 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             rd_x = torch.where(fixed_x, 0.0, rd_x)
             rd_s = torch.where(fixed_s, 0.0, rd_s)
             rp = x @ A.T - s
+            return rd_x, rd_s, rp
+
+        def residuals32(z, y, zl, zu):
+            """LP/QP residuals in float32 (the light phase's env32)."""
+            x, s = z[:, :n].to(F32), z[:, n:].to(F32)
+            yk = y.to(F32)
+            gf = c32 + x @ Qsym32 if has_q else c32
+            rd_x = gf + yk @ A32 - zl[:, :n].to(F32) + zu[:, :n].to(F32)
+            rd_s = -yk - zl[:, n:].to(F32) + zu[:, n:].to(F32)
+            rd_x = torch.where(fixed_x, 0.0, rd_x)
+            rd_s = torch.where(fixed_s, 0.0, rd_s)
+            rp = x @ A32.T - s
             return rd_x, rd_s, rp
 
         def residuals_nl(z, y, zl, zu):
@@ -416,52 +442,57 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                 torch.maximum(
                     torch.cat([rd_x, rd_s], dim=1).abs().amax(dim=1) / sd,
                     mu / sd))
-            return err, mu
+            return err.to(F64), mu
 
-        def _cert_clamp_t(y):
-            t = -y
-            tc = torch.where((t > 0) & ~fin_clb, 0.0, t)
-            return torch.where((tc < 0) & ~fin_cub, 0.0, tc)
+        def _cert_clamp_t(y, e=e64):
+            t = -y.to(e["dt"])
+            tc = torch.where((t > 0) & ~e["fin_clb"], 0.0, t)
+            return torch.where((tc < 0) & ~e["fin_cub"], 0.0, tc)
 
-        def _rc_clamp(r):
-            rc = torch.where((r > 0) & ~fin_vlb, 0.0, r)
-            return torch.where((rc < 0) & ~fin_vub, 0.0, rc)
+        def _rc_clamp(r, e=e64):
+            rc = torch.where((r > 0) & ~e["fin_vlb"], 0.0, r)
+            return torch.where((rc < 0) & ~e["fin_vub"], 0.0, rc)
 
-        def _row_term(tc):
-            return torch.where(tc > 0, tc * clb,
-                               torch.where(tc < 0, tc * cub, 0.0)).sum(dim=1)
+        def _row_term(tc, e=e64):
+            return torch.where(tc > 0, tc * e["clb"],
+                               torch.where(tc < 0, tc * e["cub"],
+                                           0.0)).sum(dim=1)
 
-        def _col_term(rc):
-            return torch.where(rc > 0, rc * vlb,
-                               torch.where(rc < 0, rc * vub, 0.0)).sum(dim=1)
+        def _col_term(rc, e=e64):
+            return torch.where(rc > 0, rc * e["vlb"],
+                               torch.where(rc < 0, rc * e["vub"],
+                                           0.0)).sum(dim=1)
 
-        def _cert_lp_terms(tc, r, const):
-            rc = _rc_clamp(r)
-            slack_pen = ((r - rc).abs() * box).sum(dim=1)
-            b = _row_term(tc) + _col_term(rc) - slack_pen + const
+        def _cert_lp_terms(tc, r, const, e=e64):
+            rc = _rc_clamp(r, e)
+            slack_pen = ((r - rc).abs() * e["box"]).sum(dim=1)
+            b = _row_term(tc, e) + _col_term(rc, e) - slack_pen + const
             return torch.where(torch.isnan(b), -_BIG, b)
 
         def _cert_qp_terms(tc, quad_min, r0):
             rc = _rc_clamp(r0)
-            pen = ((r0 - rc).abs() * box).sum(dim=1)
+            pen = ((r0 - rc).abs() * e64["box"]).sum(dim=1)
             b = _row_term(tc) + quad_min + _col_term(rc) - pen + sp.obj_const
             return torch.where(torch.isnan(b), -_BIG, b)
 
-        def _cert_scale(tc, r, mat_mag):
-            rc = _rc_clamp(r)
-            slack_pen = ((r - rc).abs() * box).sum(dim=1)
-            return ((tc.abs() * abs_clb).sum(dim=1) +
-                    (tc.abs() * abs_cub).sum(dim=1) +
-                    (rc.abs() * box).sum(dim=1) + slack_pen + mat_mag)
+        def _cert_scale(tc, r, mat_mag, e=e64):
+            rc = _rc_clamp(r, e)
+            slack_pen = ((r - rc).abs() * e["box"]).sum(dim=1)
+            return ((tc.abs() * e["abs_clb"]).sum(dim=1) +
+                    (tc.abs() * e["abs_cub"]).sum(dim=1) +
+                    (rc.abs() * e["box"]).sum(dim=1) + slack_pen + mat_mag)
 
-        def farkas_infeasible(y, margin):
+        def farkas_infeasible(y, margin, e=e64):
             """Certified infeasibility: min over the box of y.(Ax - s) > 0
-            (cert_bound_generic with cvec = 0, evaluated in f64)."""
-            tc = _cert_clamp_t(y)
-            r = -(tc @ A)
-            g0 = _cert_lp_terms(tc, r, 0.0)
-            mat_mag = (tc.abs() @ A.abs()).sum(dim=1)
-            return g0 > margin * (1.0 + _cert_scale(tc, r, mat_mag))
+            (cert_bound_generic with cvec = 0), evaluated in e's dtype:
+            f64 for the final statuses, f32 (margin 1e-4) for the light
+            phase's in-loop exits, which are re-confirmed in f64."""
+            tc = _cert_clamp_t(y, e)
+            Ae, absAe = (A, A.abs()) if e["dt"] == F64 else (A32, absA32)
+            r = -(tc @ Ae)
+            g0 = _cert_lp_terms(tc, r, 0.0, e)
+            mat_mag = (tc.abs() @ absAe).sum(dim=1)
+            return g0 > margin * (1.0 + _cert_scale(tc, r, mat_mag, e))
 
         def farkas_sp(y):
             """In-loop Farkas test via split-f32 products; every exit is
@@ -469,7 +500,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             tc = _cert_clamp_t(y)
             r = -_spmv(A_sp, tc, trans=True)
             rc = _rc_clamp(r)
-            slack_pen = ((r - rc).abs() * box).sum(dim=1)
+            slack_pen = ((r - rc).abs() * e64["box"]).sum(dim=1)
             g0 = _row_term(tc) + _col_term(rc) - slack_pen
             g0 = torch.where(torch.isnan(g0), -_BIG, g0)
             mat_mag = (tc.abs().to(F32) @ absA32).sum(dim=1).to(F64)
@@ -512,15 +543,21 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             cert_f64 = None
             cert_proxy = None
 
-        def make_step(use_f32, sopts=opts, ratchet=True):
+        def make_step(use_f32, sopts=opts, light=False, ratchet=True):
             """One IPM iteration on every lane (see the JAX make_step).
-            `use_f32` picks the factor dtype; the iteration arithmetic is
-            f64 (the light f32 phase is not ported).  NL steps always
+            `use_f32` picks the factor dtype; `light` runs the iteration
+            arithmetic (residuals, assembly, solve chain, corrections,
+            trial, Farkas test) in f32, else it is f64.  NL steps always
             factor in f64 (build_single_solver turns factor_f32 off)."""
             fdt = F32 if use_f32 else F64
-            adt = fdt if sopts.light_assembly else F64
+            dt = F32 if light else F64
+            adt = fdt if (light or sopts.light_assembly) else dt
             A_a = A32 if adt == F32 else A
             Qsym_a = (Qsym32 if adt == F32 else Qsym) if has_q else None
+            # the solve chain's operator and fixed-variable mask
+            A_d, mx_d = (A32, mx32) if dt == F32 else (A, mx64)
+            # block-correction residual dtype (LP/QP with f32 factors)
+            cdt = F32 if (light or sopts.tail_corr_f32) else F64
 
             def step(state):
                 (z, y, zl, zu, k, err, mu_prev, best_db, best_y, rvec, nu,
@@ -594,37 +631,40 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                 elif condense_x:
                     # x-space normal equations over inequality rows plus
                     # an explicit Schur block for equality rows; fixed
-                    # variables eliminated through the factored mask
-                    ineq_w = torch.where(eq_mask, 0.0, Ds) if m_eq else Ds
+                    # variables eliminated through the factored mask.
+                    # Assembly in the factor dtype, the solve chain in
+                    # the iteration dtype dt
+                    Ds_d = Ds.to(dt)
+                    ineq_w = torch.where(eq_mask, 0.0, Ds_d) if m_eq else Ds_d
                     mxa = mx64.to(adt)
                     w_a = ineq_w.to(adt)
                     gram = torch.matmul(A_a.T * w_a[:, None, :], A_a)
                     core = gram if is_lp else gram + Qsym_a
                     Mx = core * (mxa[:, :, None] * mxa[:, None, :]) + \
-                        torch.diag_embed(Dx_diag.to(adt))
+                        torch.diag_embed(Dx_diag.to(dt).to(adt))
                     solve_mx, _ = _make_spd_solver(Mx, sopts, use_f32,
-                                                   out_dtype=F64)
+                                                   out_dtype=dt)
                     if m_eq:
-                        Ae = A[eq_rows]
-                        MeJ = solve_mx(mx64[:, :, None] * Ae.T[None])
-                        S = torch.matmul(Ae, mx64[:, :, None] * MeJ) + \
-                            1e-10 * torch.eye(m_eq, dtype=F64, device=dev)
+                        Ae = A_d[eq_rows]
+                        MeJ = solve_mx(mx_d[:, :, None] * Ae.T[None])
+                        S = torch.matmul(Ae, mx_d[:, :, None] * MeJ) + \
+                            1e-10 * torch.eye(m_eq, dtype=dt, device=dev)
                         solve_s, _ = _make_spd_solver(S, sopts, use_f32,
-                                                      out_dtype=F64)
+                                                      out_dtype=dt)
 
                     def raw_xyz(rhs1, rhs2, rhs3):
-                        rx = rhs1 + mx64 * ((ineq_w * rhs3 + rhs2) @ A)
+                        r2, r3 = rhs2.to(dt), rhs3.to(dt)
+                        rx = rhs1 + mx_d * ((ineq_w * r3 + r2) @ A_d)
                         rx = torch.where(fixed_x, 0.0, rx)
                         if m_eq:
                             t = solve_mx(rx)
-                            dy_eq = solve_s((mx64 * t) @ Ae.T -
-                                            rhs3[:, eq_rows])
+                            dy_eq = solve_s((mx_d * t) @ Ae.T - r3[:, eq_rows])
                             dx = t - torch.matmul(MeJ, dy_eq[:, :, None])[:, :, 0]
                         else:
                             dx = solve_mx(rx)
                         dx = torch.where(fixed_x, 0.0, dx)
-                        ds = dx @ A.T - rhs3
-                        dy = Ds * ds - rhs2
+                        ds = dx @ A_d.T - r3
+                        dy = Ds_d * ds - r2
                         if m_eq:
                             # equality slacks do not move; their
                             # multipliers come from the Schur block
@@ -633,21 +673,32 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                         return dx, ds, dy
 
                     def corr_resid(dxc, dsc, dyc):
-                        wdx = Dx_diag * dxc
-                        if not is_lp:
-                            wdx = wdx + mx64 * ((mx64 * dxc) @ Qsym)
-                        jt = mx64 * (dyc @ A)
-                        jdx = dxc @ A.T
-                        return wdx + jt, Ds * dsc - dyc, jdx - dsc
+                        # residuals against the shared structured operator
+                        # in cdt (f32 products against the f32 copies, or
+                        # f64 ones)
+                        wdx = Dx_diag.to(cdt) * dxc
+                        if cdt == F32:
+                            if not is_lp:
+                                wdx = wdx + mx32 * ((mx32 * dxc) @ Qsym32)
+                            jt = dyc @ A32
+                            jdx = dxc @ A32.T
+                        else:
+                            if not is_lp:
+                                wdx = wdx + mx64 * ((mx64 * dxc) @ Qsym)
+                            jt = mx64 * (dyc @ A)
+                            jdx = dxc @ A.T
+                        return wdx + jt, Ds.to(cdt) * dsc - dyc, jdx - dsc
 
                     def solve_xyz(rhs1, rhs2, rhs3, rounds):
                         dx, ds, dy = raw_xyz(rhs1, rhs2, rhs3)
                         if use_f32:
                             for _ in range(rounds):
-                                r1, r2, r3 = corr_resid(dx, ds, dy)
-                                e1 = torch.where(fixed_x, 0.0, rhs1 - r1)
-                                e2 = rhs2 - r2
-                                e3 = rhs3 - r3
+                                r1, r2, r3 = corr_resid(
+                                    dx.to(cdt), ds.to(cdt), dy.to(cdt))
+                                e1 = torch.where(fixed_x, 0.0,
+                                                 rhs1.to(cdt) - r1)
+                                e2 = rhs2.to(cdt) - r2
+                                e3 = rhs3.to(cdt) - r3
                                 if m_eq:
                                     e2 = torch.where(eq_mask, 0.0, e2)
                                 cx, cs, cy = raw_xyz(e1, e2, e3)
@@ -656,42 +707,61 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                 else:
                     # m-space normal equations for skinny LPs:
                     # M = A H^-1 A' + Ds^-1 (m x m)
-                    Hinv = torch.where(fixed_x, 0.0, 1.0 / Dx_diag)
+                    Ds_d = Ds.to(dt)
+                    Hinv = torch.where(fixed_x, 0.0, 1.0 / Dx_diag).to(dt)
                     Ha = Hinv.to(adt)
                     Mf = torch.matmul(A_a * Ha[:, None, :], A_a.T) + \
-                        torch.diag_embed((1.0 / Ds).to(adt))
+                        torch.diag_embed((1.0 / Ds_d).to(adt))
                     solve_m, _ = _make_spd_solver(Mf, sopts, use_f32,
-                                                  out_dtype=F64)
+                                                  out_dtype=dt)
 
                     def raw_m(rhs1, rhs2, rhs3):
-                        rhs_y = (Hinv * rhs1) @ A.T - rhs3 - rhs2 / Ds
+                        r1, r2 = rhs1.to(dt), rhs2.to(dt)
+                        rhs_y = (Hinv * r1) @ A_d.T - rhs3.to(dt) - r2 / Ds_d
                         dy = solve_m(rhs_y)
-                        dx = Hinv * (rhs1 - dy @ A)
-                        ds = (dy + rhs2) / Ds
+                        dx = Hinv * (r1 - dy @ A_d)
+                        ds = (dy + r2) / Ds_d
                         return dx, ds, dy
 
                     def solve_xyz(rhs1, rhs2, rhs3, rounds):
                         dx, ds, dy = raw_m(rhs1, rhs2, rhs3)
                         if use_f32:
+                            Ac = A32 if cdt == F32 else A
+                            cDx, cDs = Dx_diag.to(cdt), Ds.to(cdt)
                             for _ in range(rounds):
-                                jt = dy @ A
-                                jdx = dx @ A.T
+                                dxc, dsc, dyc = dx.to(cdt), ds.to(cdt), \
+                                    dy.to(cdt)
+                                jt = dyc @ Ac
+                                jdx = dxc @ Ac.T
                                 e1 = torch.where(
-                                    fixed_x, 0.0, rhs1 - (Dx_diag * dx + jt))
-                                e2 = rhs2 - (Ds * ds - dy)
-                                e3 = rhs3 - (jdx - ds)
+                                    fixed_x, 0.0,
+                                    rhs1.to(cdt) - (cDx * dxc + jt))
+                                e2 = rhs2.to(cdt) - (cDs * dsc - dyc)
+                                e3 = rhs3.to(cdt) - (jdx - dsc)
                                 cx, cs, cy = raw_m(e1, e2, e3)
                                 dx, ds, dy = dx + cx, ds + cs, dy + cy
                         return dx, ds, dy
 
-                def solve_dirs(sig_mu, dcl, dcu, rounds):
-                    rc_l = torch.where(fin_l, sig_mu - dl * zl - dcl, 0.0)
-                    rc_u = torch.where(fin_u, sig_mu - du * zu - dcu, 0.0)
+                def solve_dirs(sig_mu, dcl, dcu, rounds, rc=None,
+                               resid=True):
+                    """dcl/dcu: extra complementarity terms.  rc=(rc_l,
+                    rc_u) gives the complementarity rhs directly (Gondzio
+                    corrections); resid=False drops the KKT residual
+                    terms (a pure direction correction)."""
+                    if rc is None:
+                        rc_l = torch.where(fin_l, sig_mu - dl * zl - dcl, 0.0)
+                        rc_u = torch.where(fin_u, sig_mu - du * zu - dcu, 0.0)
+                    else:
+                        rc_l, rc_u = rc
                     t_l = torch.where(fin_l, rc_l / dl, 0.0)
                     t_u = torch.where(fin_u, rc_u / du, 0.0)
-                    rhs1 = t_l[:, :n] - t_u[:, :n] - rd_x
-                    rhs2 = t_l[:, n:] - t_u[:, n:] - rd_s
-                    dx, ds, dy = solve_xyz(rhs1, rhs2, -rp, rounds)
+                    rhs1 = t_l[:, :n] - t_u[:, :n]
+                    rhs2 = t_l[:, n:] - t_u[:, n:]
+                    if resid:
+                        rhs1, rhs2, rhs3 = rhs1 - rd_x, rhs2 - rd_s, -rp
+                    else:
+                        rhs3 = torch.zeros_like(rp)
+                    dx, ds, dy = solve_xyz(rhs1, rhs2, rhs3, rounds)
                     dz = torch.cat([dx, ds], dim=1)
                     dzl = torch.where(fin_l, (rc_l - zl * dz) / dl, 0.0)
                     dzu = torch.where(fin_u, (rc_u + zu * dz) / du, 0.0)
@@ -722,6 +792,48 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     (sigma * mu)[:, None], dz_a * dzl_a, -dz_a * dzu_a,
                     sopts.kkt_rounds)
 
+                if (not has_nl) and sopts.gondzio_correctors > 0:
+                    # Gondzio multiple centrality corrections: at an
+                    # enlarged trial step, clip outlier complementarity
+                    # products back into [0.1, 10] x target-mu, re-solve
+                    # with that complementarity-only rhs (same
+                    # factorization, one more solve), and keep the
+                    # corrected direction per lane only where it
+                    # lengthens the combined step
+                    mu_g = torch.clamp(sigma * mu, min=1e-300)[:, None]
+                    for _ in range(sopts.gondzio_correctors):
+                        ap_c = torch.minimum(
+                            _max_step(dl, dz_c, sopts.tau, fin_l),
+                            _max_step(du, -dz_c, sopts.tau, fin_u))
+                        ad_c = torch.minimum(
+                            _max_step(zl, dzl_c, sopts.tau, fin_l),
+                            _max_step(zu, dzu_c, sopts.tau, fin_u))
+                        ape = torch.clamp(1.5 * ap_c, max=1.0)[:, None]
+                        ade = torch.clamp(1.5 * ad_c, max=1.0)[:, None]
+                        vl = torch.clamp(dl + ape * dz_c, min=0.0) * \
+                            torch.clamp(zl + ade * dzl_c, min=0.0)
+                        vu = torch.clamp(du - ape * dz_c, min=0.0) * \
+                            torch.clamp(zu + ade * dzu_c, min=0.0)
+                        rc_l = torch.where(fin_l, torch.clamp(
+                            vl, 0.1 * mu_g, 10.0 * mu_g) - vl, 0.0)
+                        rc_u = torch.where(fin_u, torch.clamp(
+                            vu, 0.1 * mu_g, 10.0 * mu_g) - vu, 0.0)
+                        gdz, gdy, gdzl, gdzu = solve_dirs(
+                            0.0, 0.0, 0.0, 1, rc=(rc_l, rc_u), resid=False)
+                        dz_g, dy_g = dz_c + gdz, dy_c + gdy
+                        dzl_g, dzu_g = dzl_c + gdzl, dzu_c + gdzu
+                        ap_g = torch.minimum(
+                            _max_step(dl, dz_g, sopts.tau, fin_l),
+                            _max_step(du, -dz_g, sopts.tau, fin_u))
+                        ad_g = torch.minimum(
+                            _max_step(zl, dzl_g, sopts.tau, fin_l),
+                            _max_step(zu, dzu_g, sopts.tau, fin_u))
+                        acc = (ap_g + ad_g) > (ap_c + ad_c + 0.02)
+                        dz_c = _sel(acc, dz_g, dz_c)
+                        dy_c = _sel(acc, dy_g, dy_c)
+                        dzl_c = _sel(acc, dzl_g, dzl_c)
+                        dzu_c = _sel(acc, dzu_g, dzu_c)
+
                 ap = torch.minimum(_max_step(dl, dz_c, sopts.tau, fin_l),
                                    _max_step(du, -dz_c, sopts.tau, fin_u))
                 ad = torch.minimum(_max_step(zl, dzl_c, sopts.tau, fin_l),
@@ -740,7 +852,8 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                         zl + (scale * ad)[:, None] * dzl_c, min=1e-300), 0.0)
                     zut = torch.where(fin_u, torch.clamp(
                         zu + (scale * ad)[:, None] * dzu_c, min=1e-300), 0.0)
-                    rd_xt, rd_st, rpt = residuals(zt, yt, zlt, zut)
+                    rd_xt, rd_st, rpt = (residuals32 if light else
+                                         residuals)(zt, yt, zlt, zut)
                     errt, mut = kkt_error(zt, yt, zlt, zut, rd_xt, rd_st, rpt)
                     merit = None
                     if has_nl:
@@ -795,8 +908,11 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     best_y = _sel(db_bet, y_new, best_y)
                 if not has_nl:
                     # certified Farkas exit (err = -2 sentinel), confirmed
-                    # in f64 after the loop
-                    err2 = torch.where(farkas_sp(y_new), -2.0, err2)
+                    # in f64 after the loop; the light phase tests in f32
+                    # at a wider margin
+                    fk = farkas_infeasible(y_new, 1e-4, e32) if light \
+                        else farkas_sp(y_new)
+                    err2 = torch.where(fk, -2.0, err2)
                 # best-state ratchet
                 better = (err2 >= 0.0) & (err2 < berr)
                 bz2, by2 = _sel(better, z_new, bz), _sel(better, y_new, by)
@@ -860,7 +976,10 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
 
         rd_x0, rd_s0, rp0 = residuals(z0, y0, zl0, zu0)
         err0, mu0 = kkt_error(z0, y0, zl0, zu0, rd_x0, rd_s0, rp0)
-        rvec0 = torch.cat([rd_x0, rd_s0, rp0], dim=1)
+        # carried residuals in the dtype of the first loop (the light
+        # phase carries f32 residuals)
+        rvec0 = torch.cat([rd_x0, rd_s0, rp0], dim=1).to(
+            F32 if light_on else F64)
         ik = torch.zeros(B, dtype=torch.long, device=dev)
         full = lambda v: torch.full((B,), v, dtype=F64, device=dev)  # noqa: E731
         state0 = (z0, y0, zl0, zu0, ik, err0, mu0, full(-_BIG), y0, rvec0,
@@ -871,7 +990,8 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             switch_tol = max(opts.tol, 1e-4)
             cap1 = max(1, opts.max_iters // 2)
             state1 = _while(cond_to(switch_tol, cap1),
-                            make_step(True, ratchet=False), state0)
+                            make_step(True, light=light_on, ratchet=False),
+                            state0)
             (z1, y1, zl1, zu1, k1, err1, mu1, bdb1, bY1, _rv1, nu1, st1,
              bz1, by1, bzl1, bzu1, berr1, bmu1) = state1
             # hand the tail the BEST phase-1 iterate

@@ -10,8 +10,12 @@ plain iterations).  Under f32 factors many lanes sit at the f32 limit,
 where a change of rounding order alone can move a lane between OPTIMAL
 (1) and ITERATION_LIMIT (4); this tells which kernel's rounding did it.
 
+`--policy f32` solves the same batch as chip_smoke's phase 9a does:
+the bench settings with `dtype f32`'s options (the f32 light phase and
+f32 tail corrections) and two Gondzio correctors.
+
 Usage: python -m minotaur_tpu_torch.tools.ipm_routes [--n 300] [--lanes 64]
-       [--device cuda]
+       [--device cuda] [--policy bench|f32]
 """
 
 from __future__ import annotations
@@ -37,8 +41,15 @@ def phase5_boxes(sp, lanes: int, seed: int = 7):
     return lo, hi
 
 
-def route_statuses(n: int = 300, lanes: int = 64,
-                   device: str = "cuda") -> dict:
+BENCH_IPM = dict(max_iters=28, tail_kkt_rounds=4, refine_steps=0,
+                 chol_retry=False)
+POLICIES = {"bench": BENCH_IPM,
+            "f32": dict(BENCH_IPM, light_phase1=True, tail_corr_f32=True,
+                        gondzio_correctors=2)}
+
+
+def route_statuses(n: int = 300, lanes: int = 64, device: str = "cuda",
+                   policy: str = "bench") -> dict:
     """{route: [(lane, status, plain status, iters, plain iters), ...]}
     for the routes "kernel/kernel", "kernel/plain", "plain/kernel" (K1/K2)
     against "plain/plain"."""
@@ -50,9 +61,8 @@ def route_statuses(n: int = 300, lanes: int = 64,
     from minotaur_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
     sp = stage_problem(intquad(n, 4, 0))
     lo, hi = phase5_boxes(sp, lanes)
-    solve = ipm.build_batch_solver(
-        sp, ipm.IPMOptions(max_iters=28, tail_kkt_rounds=4, refine_steps=0,
-                           chol_retry=False), device=device)
+    solve = ipm.build_batch_solver(sp, ipm.IPMOptions(**POLICIES[policy]),
+                                   device=device)
     k1 = {"kernel": spd_inverse, "plain": spd_inverse_plain}
     k2 = {"kernel": spd_solve, "plain": spd_solve_plain}
     saved = ipm.spd_inverse, ipm.spd_solve
@@ -77,10 +87,12 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=300)
     ap.add_argument("--lanes", type=int, default=64)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--policy", choices=sorted(POLICIES), default="bench")
     args = ap.parse_args(argv)
-    for route, lanes in route_statuses(args.n, args.lanes,
-                                       args.device).items():
+    for route, lanes in route_statuses(args.n, args.lanes, args.device,
+                                       args.policy).items():
         print(json.dumps({"route (K1/K2)": route, "n": args.n,
+                          "policy": args.policy,
                           "lanes_differing_from_plain": lanes}), flush=True)
     return 0
 

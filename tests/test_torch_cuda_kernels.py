@@ -100,8 +100,9 @@ F32, F64 = torch.float32, torch.float64
 
 # k: the scalar path (1, 31, 33, 301), the 16-byte path (300, 1000), and
 # 1000, whose refinement vectors at R=8 leave shared memory for the f64
-# operator; dtypes (factor, operator, r, x): the three pairs, and the
-# main path's float32 pair with float64 r and x
+# operator; dtypes (factor, operator, r, x): the three pairs, the main
+# path's float32 pair with float64 r and x, and the light phase's float32
+# pair with float64 r and float32 x (dtype f32)
 @pytest.mark.parametrize("steps", [0, 1, 3])
 @pytest.mark.parametrize("R", [1, 3, 8])
 @pytest.mark.parametrize("B", [1, 64])
@@ -109,7 +110,8 @@ F32, F64 = torch.float32, torch.float64
 @pytest.mark.parametrize("fdt,mdt,rdt,odt", [(F32, F32, F32, F32),
                                              (F32, F64, F64, F64),
                                              (F64, F64, F64, F64),
-                                             (F32, F32, F64, F64)])
+                                             (F32, F32, F64, F64),
+                                             (F32, F32, F64, F32)])
 def test_spd_solve_kernel_matches_plain(cuda, steps, R, B, k, fdt, mdt, rdt,
                                         odt):
     M, dinv, shift, minv32, minv64 = _solve_setup(cuda, B, k)

@@ -140,9 +140,8 @@ def test_batch_solver_matches_jax_f64_policy(name):
         1e-5 * scale[feas])
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_batch_solver_matches_jax_mixed_policy(name):
-    jr, pr = _both(name)
+def _mixed_policy_holds(jr, pr):
+    """The mixed-policy holdings (module docstring)."""
     _infeasible_lanes_agree(jr, pr)
     ps, js = np.asarray(pr.status), np.asarray(jr.status)
     margin = 10 * IPMOptions().tail_tol * (1.0 + np.abs(pr.obj))
@@ -157,6 +156,11 @@ def test_batch_solver_matches_jax_mixed_policy(name):
     assert not jopt.any() or 2 * both.sum() > jopt.sum(), (ps, js)
     np.testing.assert_array_less(np.abs(pr.obj - np.asarray(jr.obj))[both],
                                  margin[both])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_batch_solver_matches_jax_mixed_policy(name):
+    _mixed_policy_holds(*_both(name))
 
 
 def test_single_solver_with_objective_and_packed_layout():
@@ -178,11 +182,46 @@ def test_single_solver_with_objective_and_packed_layout():
 
 
 def test_out_of_slice_options_raise():
+    """Every IPM option of the JAX package is ported (the cases that
+    raised are test_ipm_option_matches_jax's); asking for CUDA on a
+    machine without it still raises."""
     sp = staged_from_numpy(staged_fields(jax_stage(G.convex_miqp(2, 2, 0))))
     for kw in (dict(light_phase1=True), dict(tail_corr_f32=True),
                dict(gondzio_correctors=1)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            build_batch_solver(sp, IPMOptions(**kw), device="cpu")
+        build_batch_solver(sp, IPMOptions(**kw), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_batch_solver(sp, IPMOptions())
+
+
+@pytest.mark.parametrize("name", ["cmiqp", "cknap"])
+@pytest.mark.parametrize("option", ["light_phase1", "tail_corr_f32",
+                                    "gondzio_correctors"])
+def test_ipm_option_matches_jax(option, name):
+    """The three IPM options, on the convex MIQP (x-space) and the
+    knapsack LP (m-space).  `light_phase1` (f32 phase-1 arithmetic) and
+    `tail_corr_f32` (f32 tail corrections) act only with f32 factors, so
+    they are held to the mixed policy's holdings, and on these lanes
+    also to the JAX statuses; `gondzio_correctors 2` is held under the f64
+    policy to the f64 holdings (same statuses, iterations and objectives
+    within 1e-6 * (1 + |obj|))."""
+    if option == "gondzio_correctors":
+        jr, pr = _both(name, gondzio_correctors=2, **F64_POLICY)
+        ps, js = np.asarray(pr.status), np.asarray(jr.status)
+        assert ps.tolist() == js.tolist()
+        assert np.asarray(pr.iters).tolist() == np.asarray(jr.iters).tolist()
+        _infeasible_lanes_agree(jr, pr)
+        opt = ps == 1
+        np.testing.assert_array_less(
+            np.abs(pr.obj - np.asarray(jr.obj))[opt],
+            1e-6 * (1.0 + np.abs(pr.obj))[opt])
+        # the correctors act (other iterates than without them) and
+        # change no status
+        _, plain = _both(name, **F64_POLICY)
+        assert np.asarray(plain.status).tolist() == ps.tolist()
+        assert np.abs(np.asarray(plain.x) - np.asarray(pr.x)).max() > 0
+    else:
+        jr, pr = _both(name, **{option: True})
+        _mixed_policy_holds(jr, pr)
+        assert np.asarray(pr.status).tolist() == \
+            np.asarray(jr.status).tolist()

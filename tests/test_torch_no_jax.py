@@ -2,7 +2,8 @@
 
 Checked in a fresh interpreter (this test process has jax loaded by
 conftest): import every module of minotaur_tpu_torch (the NL path, the
-readers, the QG/OA path and the solver CLIs included), then look at
+readers, the QG/OA path, the solver CLIs, the node store, QPD and the
+sweep included), then look at
 sys.modules.  The port keeps its own copies of the JAX package's
 numpy-only modules; those copied as they are must stay byte-equal to
 the JAX package's file.
@@ -37,7 +38,9 @@ for name in ("ops.stage", "ops.interval", "engines.staging", "convert",
              "solvers.base", "solvers.mbnb", "bnb.cuts", "bnb.heuristics",
              "bnb.persp", "bnb.multistart", "bnb.linearizations", "bnb.qg",
              "bnb.oa", "solvers.mqg", "solvers.moa", "solvers.mlstoa",
-             "solvers.mqgpar", "solvers.msbnb", "solvers.mmultistart"):
+             "solvers.mqgpar", "solvers.msbnb", "solvers.mmultistart",
+             "native", "bnb.checkpoint", "bnb.qpd", "tools.sweep",
+             "engines.factory", "ir.polynomial", "utils.operations"):
     assert "minotaur_tpu_torch." + name in names, name
 assert not bad, bad
 """
@@ -67,7 +70,8 @@ VERBATIM = (
     "utils/logger.py", "utils/timer.py", "utils/environment.py",
     "ir/expr.py", "ir/functions.py", "ir/problem.py", "ops/opcodes.py",
     "bnb/node.py", "bnb/solpool.py", "bnb/trimloss.py", "bnb/nlpres.py",
-    "bnb/bin2lin.py", "bnb/cuts.py", "bnb/persp.py",
+    "bnb/bin2lin.py", "bnb/cuts.py", "bnb/persp.py", "bnb/checkpoint.py",
+    "ir/polynomial.py", "utils/operations.py", "native/treestore.cpp",
     "models/generators.py", "models/convex_suite.py",
     "io/nl_reader.py", "io/nl_writer.py", "io/mps_reader.py",
     "io/sol_writer.py", "io/gams_reader.py",

@@ -10,8 +10,11 @@
   the three-indicator model under `persp_ref` (the reformulation runs
   before staging, inside QG): SOLVED_OPTIMAL at the closed-form optimum,
   and the JAX driver's ub, within 1e-6 * (1 + |opt|).
-- The plain B&B keeps raising on `persp_ref` and `fpump`; QG applies
-  both itself.
+- The plain B&B takes `persp_ref` (the reformulation at presolve,
+  under `nl_presolve`) and `fpump` (accepted, no effect, as in the JAX
+  plain driver): on the semicontinuous model it reaches the closed-form
+  optimum and the JAX plain driver's ub within 1e-6 * (1 + |opt|); QG
+  takes both too.
 """
 
 import math
@@ -151,9 +154,18 @@ def test_qg_semicontinuous_matches_jax(make, opt, opts):
 
 @pytest.mark.parametrize("name", ["persp_ref", "fpump"])
 def test_plain_bnb_still_raises(name):
-    env = _env(Environment, **{name: True})
-    with pytest.raises(NotImplementedError, match=name):
-        BranchAndBound(_semicont(PORT), env, device="cpu")
+    """No longer raises: the plain B&B matches the JAX plain driver under
+    each option (the name is kept from when both raised)."""
+    from minotaur_tpu.bnb.bnb import BranchAndBound as JaxBnB
+    opt = 0.9 - math.sqrt(2.0)
+    tb = BranchAndBound(_semicont(PORT), _env(Environment, **{name: True}),
+                        device="cpu")
+    assert tb.solve() == SolveStatus.SOLVED_OPTIMAL
+    tol = 1e-6 * (1 + abs(opt))
+    assert abs(tb.ub - opt) <= tol
+    jb = JaxBnB(_semicont(JAX), _env(JEnv, **{name: True}))
+    assert jb.solve() == SolveStatus.SOLVED_OPTIMAL
+    assert abs(tb.ub - jb.ub) <= tol
     # QG takes both
     QGBranchAndBound(_semicont(PORT), _env(Environment, **{name: True}),
                      device="cpu")
