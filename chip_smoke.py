@@ -38,7 +38,20 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
      the QPD node processor with `qpdheur` (capped), sound, with the
      lanes verified on the true model; (c) intquad(300) checkpointed
      under a node cap and resumed to a sound finish, an SOS1 and an SOS2
-     model, and `brancher weak` on cknap_30a, at their optima.
+     model, and `brancher weak` on cknap_30a, at their optima;
+ 10. the global path: (a) one glob-step batch of qknap(100, 0.25, 0) at
+     full width (1378 columns, 5113 rows a lane) on 64 seeded nodes
+     through the kernels against the plain versions under f64 factors
+     (objectives within 1e-6) and the driver's mixed policy (certified
+     bounds held; lanes at the iteration cap may end OPTIMAL in one run
+     and ITERATION_LIMIT in the other), with K1 f32 at
+     (64, 1378, 1378) and K2 refine 2 at (64, 1378) timed against plain;
+     (b) GlobBranchAndBound on qknap(100, 0.25, 0) at B=64 (capped),
+     sound, with nodes/s and launch counts, and bilinear_pooling(64)
+     (capped) against its analytic optimum; (c) the `mglob` CLI on a
+     nonconvex qknap(16) at its enumeration optimum and on a convex MIQP
+     forwarded to QG; (d) `obbt 1` on qknap(24), sound, with K1 and K2
+     at the OBBT lanes' shape against plain.
 
 Every phase prints one line; any failed check raises and the process
 exits non-zero without the final line.  The next-to-last line is the
@@ -61,20 +74,30 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 # phase 7: normcon(n, seed) at B lanes (SUITE["normcon_1024a"]), its full
 # search capped at node_cap nodes and time_cap seconds
-NL = dict(n=1024, seed=7, B=64, node_cap=256, time_cap=150.0)
+NL = dict(n=1024, seed=7, B=64, node_cap=64, time_cap=150.0)
 NL_ROWS = ("normcon_20a", "expbudget_8a", "ex1223_a", "batchdes_a")
 # phase 8: QGBranchAndBound on normcon(n, seed) at B lanes (the sweep's
 # mqg row normcon_1024a), capped at node_cap nodes and time_cap seconds
-QG = dict(n=1024, seed=7, B=64, node_cap=256, time_cap=180.0)
+QG = dict(n=1024, seed=7, B=64, node_cap=32, time_cap=180.0)
 # phase 9a: the main-path model under dtype f32 with Gondzio correctors
 # and OBBT (whose linear view of intquad is one row: K1 at (2n, 1, 1))
-F32_PATH = dict(n=300, node_cap=8192, time_cap=60.0, obbt_k=1,
+F32_PATH = dict(n=300, node_cap=8192, time_cap=10.0, obbt_k=1,
                 options=(("dtype", "f32"), ("obbt", 1)), gondzio=2,
                 max_flips=4)
 # phase 9b: normcon(n, seed) under nodeproc qpd + qpdheur, capped
-QPD = dict(n=1024, seed=7, B=64, node_cap=512, time_cap=60.0)
+QPD = dict(n=1024, seed=7, B=64, node_cap=256, time_cap=60.0)
 # phase 9c: the checkpointed run's node cap, the resumed run's time cap
-CKPT = dict(node_cap=320, time_cap=60.0)
+CKPT = dict(node_cap=320, time_cap=10.0)
+# phase 10: the global path on quadratic_knapsack(n, density, seed) at B
+# lanes (full width: 1378 columns, 5113 rows a lane), its search capped
+# at time_cap seconds (10b); bilinear_pooling(pairs, 0) capped at
+# pool_cap; mglob on qknap(cli_n) (10c); obbt 1 on qknap(obbt_n) capped
+# at obbt_cap (10d)
+GLOB = dict(n=100, density=0.25, seed=0, B=64, time_cap=60.0, pairs=64,
+            pool_cap=30.0, cli_n=16, obbt_n=24, obbt_cap=15.0)
+# phase 6: intquad(300)'s search at the bench settings, capped at this
+# many nodes (8192 before PR 8)
+MAIN_NODE_CAP = 1024
 # the bench's IPM settings (bench.py:78-95) as driver options
 BENCH_OPTIONS = (("node_batch", 64), ("pad_full", 1), ("ipm_max_iters", 28),
                  ("ipm_tail_kkt_rounds", 4), ("ipm_refine_steps", 0),
@@ -534,7 +557,7 @@ def phase_main_path(record):
 
     # intquad(300) at the bench settings (bench.py:78-95)
     env = Environment()
-    for k, v in BENCH_OPTIONS + (("bnb_node_limit", 8192),
+    for k, v in BENCH_OPTIONS + (("bnb_node_limit", MAIN_NODE_CAP),
                                  ("bnb_time_limit", 180.0),
                                  ("log_level", 1)):
         env.set_option(k, v)
@@ -891,18 +914,20 @@ def phase_qg_small(record):
             f"root anchor did not run; {dt:.2f} s")
 
 
-def phase_qg_kernels(record):
-    """K1 in f32 at the QG master's shape and K2 at (B, n) with the
-    master's call (f32 factor and operator, f64 r and x, refine_steps
-    2, the default ipm_refine_steps) against their plain versions."""
+def f32_kernels_vs_plain(B, k, seeds, steps=2):
+    """K1 in f32 at (B, k, k) and K2 at (B, k) with the IPM's default call
+    (f32 factor and operator, f64 r and x, refine `steps`) against their
+    plain versions on seeded SPD lanes, timed.  Returns two dicts: K1's
+    (resid, max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)
+    and K2's (resid, max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
     import torch
     from minotaur_tpu_torch.ops.spd_inverse import (spd_inverse,
                                                     spd_inverse_plain)
     from minotaur_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
     dev = torch.device(DEVICE)
     F64 = torch.float64
-    B, k, steps = QG["B"], QG["n"], 2
-    g = torch.Generator(device=dev).manual_seed(17)
+    calls = 5 if k >= 1000 else 20
+    g = torch.Generator(device=dev).manual_seed(seeds[0])
     A = torch.randn((B, k, k), generator=g, dtype=F64, device=dev)
     eye = torch.eye(k, dtype=F64, device=dev)
     ms = (A @ A.transpose(1, 2) / k + 2.0 * eye).float()
@@ -910,21 +935,23 @@ def phase_qg_kernels(record):
     minv, flag = spd_inverse(ms)
     pminv, pflag = spd_inverse_plain(ms)
     torch.cuda.synchronize()
+    what = f"K1 at ({B},{k},{k})"
     check(torch.equal(flag, pflag) and bool((flag == 0).all()),
-          "K1 (QG shape): flags differ from plain or a lane failed")
-    resid = (eye - ms.double() @ minv.double()).abs().max().item()
-    k1_err = (minv - pminv).abs().max().item()
-    check(resid < 5e-5, f"K1 (QG shape): residual {resid:.3g}")
-    check(k1_err <= 5e-5 * pminv.abs().max().item(),
-          f"K1 (QG shape) vs plain {k1_err:.3g}")
+          f"{what}: flags differ from plain or a lane failed")
+    k1 = dict(resid=(eye - ms.double() @ minv.double()).abs().max().item(),
+              max_abs_err=(minv - pminv).abs().max().item())
+    check(k1["resid"] < 5e-5, f"{what}: residual {k1['resid']:.3g}")
+    check(k1["max_abs_err"] <= 5e-5 * pminv.abs().max().item(),
+          f"{what} vs plain {k1['max_abs_err']:.3g}")
     del minv, pminv
-    k1 = dict(ms=event_ms(lambda: spd_inverse(ms), calls=5, reps=3),
-              plain_ms=event_ms(lambda: spd_inverse_plain(ms), calls=5, reps=3),
-              library_ms=event_ms(lambda: torch.linalg.inv_ex(ms), calls=5,
-                                  reps=3))
-    k1["bound_ms"], k1_by = k1_bound(B, k, 4)
+    k1.update(ms=event_ms(lambda: spd_inverse(ms), calls=calls, reps=3),
+              plain_ms=event_ms(lambda: spd_inverse_plain(ms), calls=calls,
+                                reps=3),
+              library_ms=event_ms(lambda: torch.linalg.inv_ex(ms),
+                                  calls=calls, reps=3))
+    k1["bound_ms"], k1["bound_by"] = k1_bound(B, k, 4)
     del ms
-    M, dinv, shift, minv32, _minv64 = k2_inputs(dev, B, k, 19)
+    M, dinv, shift, minv32, _minv64 = k2_inputs(dev, B, k, seeds[1])
     del _minv64
     m32, d32, s32 = M.float(), dinv.float(), shift.float()
     r = torch.randn((B, k), dtype=F64, device=dev)
@@ -932,31 +959,51 @@ def phase_qg_kernels(record):
     x = spd_solve(*args)
     px = spd_solve_plain(*args)
     torch.cuda.synchronize()
-    k2_err = (x - px).abs().max().item()
-    check(k2_err <= 1e-5 * px.abs().max().item(),
-          f"K2 (QG shape) vs plain {k2_err:.3g}")
-    res = ((r - (M @ x[:, :, None])[:, :, 0] - shift * x).norm() /
-           r.norm()).item()
-    check(res < 1e-4, f"K2 (QG shape) residual {res:.3g}")
-    k2 = dict(ms=graph_ms(lambda: spd_solve(*args), calls=10, reps=3),
+    what = f"K2 at ({B},{k}) refine {steps}"
+    k2 = dict(max_abs_err=(x - px).abs().max().item(),
+              resid=((r - (M @ x[:, :, None])[:, :, 0] - shift * x).norm() /
+                     r.norm()).item())
+    check(k2["max_abs_err"] <= 1e-5 * px.abs().max().item(),
+          f"{what} vs plain {k2['max_abs_err']:.3g}")
+    check(k2["resid"] < 1e-4, f"{what}: residual {k2['resid']:.3g}")
+    k2.update(ms=graph_ms(lambda: spd_solve(*args), calls=10, reps=3),
               plain_ms=graph_ms(lambda: spd_solve_plain(*args), calls=10,
                                 reps=3))
-    k2["bound_ms"], k2_by = k2_bound(B, k, 4, 4, steps=steps)
+    k2["bound_ms"], k2["bound_by"] = k2_bound(B, k, 4, 4, steps=steps)
     del M, minv32, m32, args
     torch.cuda.empty_cache()
-    say(f"[8] K1 spd_inverse ({B},{k},{k}) f32 (the QG master's factor): "
-        f"flags equal to plain, resid {resid:.3g}, max|kernel-plain| "
-        f"{k1_err:.3g}; ms kernel {k1['ms']:.4f} plain {k1['plain_ms']:.4f} "
-        f"inv_ex {k1['library_ms']:.4f} bound {k1['bound_ms']:.4f} "
-        f"({k1_by}).  K2 spd_solve ({B},{k}) f32 factor and operator, f64 r "
-        f"and x, refine {steps}: max|kernel-plain| {k2_err:.3g}, resid "
-        f"{res:.3g}; device ms (CUDA graph replay) kernel {k2['ms']:.4f} "
-        f"plain {k2['plain_ms']:.4f} bound {k2['bound_ms']:.4f} ({k2_by})")
-    record["spd_inverse"].update({f"qg_f32_k{k}_" + key: v for key, v in
-                                  dict(max_abs_err=k1_err, **k1).items()})
-    record["spd_solve"].update({f"qg_refine{steps}_k{k}_" + key: v
-                                for key, v in dict(max_abs_err=k2_err,
-                                                   **k2).items()})
+    return k1, k2
+
+
+def kernels_line(B, k, steps, k1, k2):
+    return (f"K1 spd_inverse ({B},{k},{k}) f32: flags equal to plain, resid "
+            f"{k1['resid']:.3g}, max|kernel-plain| {k1['max_abs_err']:.3g}; "
+            f"ms kernel {k1['ms']:.4f} plain {k1['plain_ms']:.4f} inv_ex "
+            f"{k1['library_ms']:.4f} bound {k1['bound_ms']:.4f} "
+            f"({k1['bound_by']}).  K2 spd_solve ({B},{k}) f32 factor and "
+            f"operator, f64 r and x, refine {steps}: max|kernel-plain| "
+            f"{k2['max_abs_err']:.3g}, resid {k2['resid']:.3g}; device ms "
+            f"(CUDA graph replay) kernel {k2['ms']:.4f} plain "
+            f"{k2['plain_ms']:.4f} bound {k2['bound_ms']:.4f} "
+            f"({k2['bound_by']})")
+
+
+def record_kernels(record, prefix1, prefix2, k1, k2):
+    keep = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")
+    record["spd_inverse"].update({prefix1 + key: k1[key] for key in keep})
+    record["spd_solve"].update({prefix2 + key: k2[key] for key in keep
+                                if key in k2})
+
+
+def phase_qg_kernels(record):
+    """K1 in f32 at the QG master's shape and K2 at (B, n) with the
+    master's call (f32 factor and operator, f64 r and x, refine_steps
+    2, the default ipm_refine_steps) against their plain versions."""
+    B, k, steps = QG["B"], QG["n"], 2
+    k1, k2 = f32_kernels_vs_plain(B, k, (17, 19), steps)
+    say("[8] " + kernels_line(B, k, steps, k1, k2).replace(
+        "f32:", "f32 (the QG master's factor):", 1))
+    record_kernels(record, f"qg_f32_k{k}_", f"qg_refine{steps}_k{k}_", k1, k2)
 
 
 def phase_qg_full(record):
@@ -1401,6 +1448,308 @@ def phase_ckpt_sos_weak(record):
     say("[9c] " + "; ".join(lines))
 
 
+def qknap_optimum(p, chunk=1 << 22):
+    """Exact optimum of a quadratic_knapsack model by enumerating its
+    2^n binary points in chunks on the card."""
+    import torch
+    dev = torch.device(DEVICE)
+    f64 = dict(dtype=torch.float64, device=dev)
+    n = p.n_vars
+    c = torch.zeros(n, **f64)
+    for j, v in p.obj.fun.lf:
+        c[j] += v
+    Q = torch.zeros((n, n), **f64)
+    for (i, j), q in p.obj.fun.qf.terms.items():
+        Q[i, j] += q
+    con = p.cons[0]
+    w = torch.zeros(n, **f64)
+    for j, v in con.fun.lf:
+        w[j] += v
+    bits = torch.arange(n, device=dev)
+    best = float("inf")
+    for start in range(0, 1 << n, chunk):
+        ids = torch.arange(start, min(start + chunk, 1 << n), device=dev)
+        X = ((ids[:, None] >> bits) & 1).to(torch.float64)
+        val = X @ c + ((X @ Q) * X).sum(dim=1) + p.obj.const
+        val = torch.where(X @ w <= con.ub + 1e-9, val, float("inf"))
+        best = min(best, val.min().item())
+    return best
+
+
+def glob_boxes(gs, B, seed):
+    """The root box and B - 1 nodes of a search: about a fifth of the
+    binaries fixed at random, the auxiliary columns at their root
+    bounds."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = np.tile(gs.vlb, (B, 1)), np.tile(gs.vub, (B, 1))
+    for b in range(1, B):
+        fix = np.where(rng.uniform(size=gs.n_x) < 0.2)[0]
+        lo[b, fix] = hi[b, fix] = rng.integers(0, 2, size=len(fix))
+    return lo, hi
+
+
+def glob_env(**opts):
+    from minotaur_tpu_torch.utils.environment import Environment
+    env = Environment()
+    for k, v in dict(log_level=1, node_batch=GLOB["B"], **opts).items():
+        env.set_option(k, v)
+    return env
+
+
+def glob_step_vs_plain(step, lo, hi, label, obj_tol, bound_tol):
+    """One glob-step batch through the kernels and through their plain
+    versions.  Statuses equal lane by lane, but for lanes that end
+    OPTIMAL in one run and ITERATION_LIMIT in the other (lanes that reach
+    the iteration cap, where the kernels' rounding decides); objectives
+    of lanes optimal in both within obj_tol (None: reported only); each
+    run's certified bound below the other's optimum, within bound_tol.
+    Returns the phase line's part and the kernel run's launch counts."""
+    import numpy as np
+    from minotaur_tpu_torch import device as mdev
+    from minotaur_tpu_torch.tools.profile_bnb import plain_kernels
+    B, nz = lo.shape
+    x0 = np.zeros_like(lo)
+    mdev.reset_launches()
+    t0 = time.monotonic()
+    rk = step(lo, hi, x0)
+    t_k = time.monotonic() - t0
+    counts = mdev.launch_counts()
+    with plain_kernels():
+        t0 = time.monotonic()
+        rp = step(lo, hi, x0)
+        t_p = time.monotonic() - t0
+    for r in (rk, rp):
+        check(r.x.shape == (B, nz) and np.all(np.isfinite(r.x)),
+              f"glob step ({label}) returned non-finite x")
+    rel = np.abs(rk.obj - rp.obj) / (1 + np.abs(rp.obj))
+    flips = np.where(rk.status != rp.status)[0]
+    check(bool(np.isin(rk.status[flips], (1, 4)).all()) and
+          bool(np.isin(rp.status[flips], (1, 4)).all()),
+          f"glob step ({label}): statuses differ on lanes {flips.tolist()}: "
+          f"kernel {rk.status[flips].tolist()} plain "
+          f"{rp.status[flips].tolist()}")
+    both = (rk.status == 1) & (rp.status == 1)
+    worst = float(np.where(both, rel, 0.0).max())
+    check(obj_tol is None or worst <= obj_tol,
+          f"glob step ({label}): objective mismatch {worst:.3g}")
+    for r, o in ((rk, rp), (rp, rk)):
+        lim = o.obj + bound_tol * (1.0 + np.abs(o.obj))
+        bad = np.where((o.status == 1) & (r.dual_bound > lim))[0]
+        check(bad.size == 0, f"glob step ({label}): certified bound above "
+              f"the other run's optimum on lanes {bad.tolist()}")
+    for name, cnt in counts.items():
+        check(cnt > 0, f"kernel {name} was not launched by the glob step")
+    gap = np.where(rk.status == 1, (rk.obj - rk.dual_bound) /
+                   (1 + np.abs(rk.obj)), 0.0)
+    flipped = (f" (OPTIMAL/ITERATION_LIMIT flips on lanes {flips.tolist()}, "
+               f"|dobj|/(1+|obj|) there up to {rel[flips].max():.3g})"
+               if len(flips) else "")
+    return (f"{label}: statuses equal {B - len(flips)}/{B}{flipped}, optimal "
+            f"{int((rk.status == 1).sum())}/{int((rp.status == 1).sum())}, "
+            f"max|dobj|/(1+|obj|) over optimal lanes {worst:.3g}, max (obj - "
+            f"certified bound)/(1+|obj|) over the kernel run's optimal lanes "
+            f"{gap.max():.3g}, wall s kernel {t_k:.2f} plain {t_p:.2f}, "
+            f"launches {{{', '.join(f'{k}: {v}' for k, v in counts.items())}}}"
+            ), counts
+
+
+def phase_glob_step(record):
+    """10a: one glob-step batch of qknap(100, 0.25, 0) at full width on 64
+    seeded nodes, through the kernels and through their plain versions,
+    under f64 factors and the driver's mixed policy;
+    K1 and K2 at the step's shape against plain."""
+    import dataclasses
+    from minotaur_tpu_torch.engines.ipm import IPMOptions
+    from minotaur_tpu_torch.glob.glob_bnb import GlobBranchAndBound
+    from minotaur_tpu_torch.glob.glob_step import build_glob_step
+    from minotaur_tpu_torch.models.generators import quadratic_knapsack
+    B = GLOB["B"]
+    bab = GlobBranchAndBound(quadratic_knapsack(
+        GLOB["n"], GLOB["density"], GLOB["seed"]), glob_env(), device=DEVICE)
+    gs = bab.gs
+    m = gs.A.shape[0] + 4 * gs.n_y + 4 * gs.n_u
+    lo, hi = glob_boxes(gs, B, 21)
+    f64_opts = dataclasses.replace(bab._step_opts, ipm=dataclasses.replace(
+        bab._step_opts.ipm, factor_f32=False, tail_factor_f32=False))
+    line64, _ = glob_step_vs_plain(build_glob_step(gs, f64_opts, DEVICE),
+                                   lo, hi, "f64", 1e-6, 1e-6)
+    # the driver's step, the mixed policy: its OPTIMAL means a scaled KKT
+    # error below tail_tol, which on these LPs leaves objectives percents
+    # apart under any change of rounding (the JAX package's against the
+    # port's, on the CPU, too), so only the certificates are held
+    tol = 10 * IPMOptions().tail_tol
+    line32, counts = glob_step_vs_plain(bab._step, lo, hi, "mixed", None,
+                                        tol)
+    say(f"[10a] glob step qknap({GLOB['n']},{GLOB['density']},{GLOB['seed']}) "
+        f"B={B}: nz {gs.n} (x {gs.n_x}, terms {gs.n_y}), rows {m} a lane; "
+        f"kernel vs plain: {line64}; {line32}")
+    del bab
+    k1, k2 = f32_kernels_vs_plain(B, gs.n, (23, 29))
+    say("[10a] " + kernels_line(B, gs.n, 2, k1, k2))
+    record_kernels(record, "glob_", "glob_", k1, k2)
+    record["glob_step_launches"] = counts
+
+
+def phase_glob_full(record):
+    """10b: GlobBranchAndBound on qknap(100, 0.25, 0) at B=64 (capped),
+    sound, with nodes/s and the kernels' launches; bilinear_pooling(64)
+    (capped) against its analytic optimum."""
+    from minotaur_tpu_torch import device as mdev
+    from minotaur_tpu_torch.glob.glob_bnb import GlobBranchAndBound
+    from minotaur_tpu_torch.models.generators import (bilinear_pooling,
+                                                      quadratic_knapsack)
+    p = quadratic_knapsack(GLOB["n"], GLOB["density"], GLOB["seed"])
+    bab = GlobBranchAndBound(p, glob_env(bnb_time_limit=GLOB["time_cap"]),
+                             device=DEVICE)
+    mdev.reset_launches()
+    t0 = time.monotonic()
+    st = bab.solve()
+    dt = time.monotonic() - t0
+    counts = mdev.launch_counts()
+    check(bab.lb <= bab.ub + 1e-6 * (1 + abs(bab.ub)),
+          f"qknap_{GLOB['n']}: lb {bab.lb} above ub {bab.ub}")
+    # a capped run may end before any incumbent; one it found is feasible
+    # and is the ub
+    check(bab.best_x is None or (
+        p.is_feasible(bab.best_x, atol=1e-5, int_tol=1e-6) and
+        abs(p.eval_objective(bab.best_x) - bab.ub) <= 1e-6 * (1 + abs(bab.ub))),
+          f"qknap_{GLOB['n']}: the incumbent is infeasible or not the ub")
+    for name, cnt in counts.items():
+        check(cnt > 0, f"kernel {name} was not launched by the glob search")
+    nodes = max(1, bab.nodes_processed)
+    say(f"[10b] qknap_{GLOB['n']} B={GLOB['B']} (GlobBranchAndBound): status "
+        f"{st.name} lb {bab.lb:.10g} ub {bab.ub:.10g} gap "
+        f"{bab._gap() * 100:.4g}%, incumbent "
+        f"{'none' if bab.best_x is None else 'feasible'}; nodes {nodes} in "
+        f"{dt:.2f} s = "
+        f"{nodes / dt:.3f} nodes/s; supersteps {bab._steps_done}; launches "
+        f"{{{', '.join(f'{k}: {v}' for k, v in counts.items())}}}")
+    record["glob_launches"] = counts
+
+    p = bilinear_pooling(GLOB["pairs"], 0)
+    c = [-v for v in p.obj.fun.qf.terms.values()]
+    opt = -sum(ci * (con.ub / 2) ** 2 for ci, con in zip(c, p.cons))
+    bab = GlobBranchAndBound(p, glob_env(bnb_time_limit=GLOB["pool_cap"]),
+                             device=DEVICE)
+    t0 = time.monotonic()
+    st = bab.solve()
+    dt = time.monotonic() - t0
+    tol = 1e-6 * (1 + abs(opt))
+    check(bab.lb <= opt + tol and opt <= bab.ub + tol,
+          f"bilin_{GLOB['pairs']} unsound: lb {bab.lb} opt {opt} ub {bab.ub}")
+    say(f"[10b] bilinear_pooling({GLOB['pairs']}, 0) B={GLOB['B']}: status "
+        f"{st.name} lb {bab.lb:.10g} opt {opt:.10g} ub {bab.ub:.10g}; nodes "
+        f"{bab.nodes_processed} in {dt:.2f} s")
+
+
+def phase_glob_cli(record):
+    """10c: `python -m minotaur_tpu_torch.solvers.mglob file.nl` on the
+    card: a nonconvex qknap at its enumeration optimum, and a convex MIQP
+    forwarded to QG."""
+    import numpy as np
+    from minotaur_tpu_torch.io.nl_writer import write_nl
+    from minotaur_tpu_torch.ir.functions import (Function, LinearFunction,
+                                                 QuadraticFunction)
+    from minotaur_tpu_torch.ir.problem import Problem
+    from minotaur_tpu_torch.models.generators import quadratic_knapsack
+    from minotaur_tpu_torch.utils.types import VarType
+    convex = Problem("convminlp")
+    convex.new_variable(0, 10)
+    convex.new_variable(0, 10, VarType.INTEGER)
+    convex.new_constraint(Function(lf=LinearFunction({0: 1.0, 1: 1.0})),
+                          3.7, np.inf)
+    qf = QuadraticFunction()
+    qf.add_term(0, 0, 1.0)
+    qf.add_term(1, 1, 1.0)
+    convex.new_objective(Function(qf=qf))
+    qk = quadratic_knapsack(GLOB["cli_n"], GLOB["density"], GLOB["seed"])
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, prob, opt, says in (
+                (f"qknap{GLOB['cli_n']}", qk, qknap_optimum(qk), "nodes:"),
+                ("convminlp", convex, 6.89, "forwarding to QG")):
+            path = os.path.join(tmp, name + ".nl")
+            write_nl(prob, path)
+            env = dict(os.environ, PYTHONPATH=HERE)
+            t0 = time.monotonic()
+            out = subprocess.run(
+                [sys.executable, "-m", "minotaur_tpu_torch.solvers.mglob",
+                 path, "--write_sol_file", "1", "--node_batch", "64"],
+                cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=300)
+            dt = time.monotonic() - t0
+            log = out.stdout + out.stderr
+            check(out.returncode == 0,
+                  f"mglob exited {out.returncode}:\n{log[-3000:]}")
+            objs = [float(line.rsplit(" ", 1)[1]) for line in
+                    log.splitlines() if "best objective:" in line]
+            check(len(objs) == 1 and
+                  abs(objs[0] - opt) <= 1e-6 * (1 + abs(opt)),
+                  f"mglob on {name}: objective {objs} vs optimum {opt}")
+            check(says in log, f"mglob on {name}: no '{says}' in the log")
+            sol = os.path.join(tmp, name + ".sol")
+            check(os.path.exists(sol), f"mglob wrote no .sol for {name}")
+            with open(sol) as fh:
+                head = fh.readline().strip()
+            lines.append(f"{name}.nl exit 0 in {dt:.2f} s, best objective "
+                         f"{objs[0]:.10g} (optimum {opt:.10g}), .sol "
+                         f"'{head}'")
+    say("[10c] mglob CLI: " + "; ".join(lines))
+
+
+def phase_glob_obbt(record):
+    """10d: GlobBranchAndBound with `obbt 1` on qknap(24) (capped): root
+    OBBT as 2 nz lanes of one IPM call, sound; K1 and K2 at its lanes'
+    shape against plain."""
+    from minotaur_tpu_torch import device as mdev
+    from minotaur_tpu_torch.glob.glob_bnb import GlobBranchAndBound
+    from minotaur_tpu_torch.models.generators import quadratic_knapsack
+    n = GLOB["obbt_n"]
+    p = quadratic_knapsack(n, GLOB["density"], GLOB["seed"])
+    opt = qknap_optimum(p)
+    bab = GlobBranchAndBound(p, glob_env(obbt=1,
+                                         bnb_time_limit=GLOB["obbt_cap"]),
+                             device=DEVICE)
+    gs = bab.gs
+    obbt = {}
+    plain_obbt = bab._root_obbt
+
+    def counted_obbt(vlb, vub):
+        before = mdev.launch_counts()
+        t0 = time.monotonic()
+        lo, hi = plain_obbt(vlb, vub)
+        after = mdev.launch_counts()
+        obbt.update(s=time.monotonic() - t0, tightened=int(
+            (lo > vlb + 1e-7).sum() + (hi < vub - 1e-7).sum()),
+            launches={k: after[k] - before[k] for k in after})
+        return lo, hi
+
+    bab._root_obbt = counted_obbt
+    mdev.reset_launches()
+    t0 = time.monotonic()
+    st = bab.solve()
+    dt = time.monotonic() - t0
+    tol = 1e-6 * (1 + abs(opt))
+    check(bool(obbt), "glob OBBT did not run")
+    check(bab.lb <= opt + tol and opt <= bab.ub + tol,
+          f"qknap_{n} (obbt 1) unsound: lb {bab.lb} opt {opt} ub {bab.ub}")
+    for name, cnt in obbt["launches"].items():
+        check(cnt > 0, f"kernel {name} was not launched by glob OBBT")
+    lanes = 2 * gs.n
+    m = gs.A.shape[0] + 4 * gs.n_y + 4 * gs.n_u
+    k = gs.n if m >= gs.n else m
+    say(f"[10d] qknap_{n} obbt 1: OBBT {lanes} lanes (k = {k}) in "
+        f"{obbt['s']:.2f} s, {obbt['tightened']} bounds tightened, launches "
+        f"{obbt['launches']}; search {st.name} lb {bab.lb:.10g} opt "
+        f"{opt:.10g} ub {bab.ub:.10g}, nodes {bab.nodes_processed} in "
+        f"{dt:.2f} s")
+    k1, k2 = f32_kernels_vs_plain(lanes, k, (31, 37))
+    say("[10d] " + kernels_line(lanes, k, 2, k1, k2))
+    record_kernels(record, "glob_obbt_", "glob_obbt_", k1, k2)
+    record["glob_obbt_launches"] = obbt["launches"]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "minotaur_tpu_torch")):
         print("chip_smoke: minotaur_tpu_torch not found next to this "
@@ -1414,21 +1763,17 @@ def main() -> int:
     record = {}
     phase_identify()
     phase_build()
-    phase_k1(record)
-    phase_k2(record)
-    phase_ipm(record)
-    phase_main_path(record)
-    phase_nl_kernels(record)
-    phase_nl_ipm(record)
-    phase_nl_bnb(record)
-    phase_cli(record)
-    phase_qg_small(record)
-    phase_qg_kernels(record)
-    phase_qg_full(record)
-    phase_qg_cli(record)
-    phase_f32_path(record)
-    phase_qpd(record)
-    phase_ckpt_sos_weak(record)
+    seconds = {}
+    for phase in (phase_k1, phase_k2, phase_ipm, phase_main_path,
+                  phase_nl_kernels, phase_nl_ipm, phase_nl_bnb, phase_cli,
+                  phase_qg_small, phase_qg_kernels, phase_qg_full,
+                  phase_qg_cli, phase_f32_path, phase_qpd,
+                  phase_ckpt_sos_weak, phase_glob_step, phase_glob_full,
+                  phase_glob_cli, phase_glob_obbt):
+        t0 = time.monotonic()
+        phase(record)
+        seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)
+    say(f"[t] wall s by phase: {seconds}")
     launches = record["launches"]
     kernels = []
     for name, src, rep in (
@@ -1443,7 +1788,12 @@ def main() -> int:
                "qg_launches": int(record["qg_launches"][name]),
                "f32_launches": int(record["f32_launches"][name]),
                "obbt_launches": int(record["obbt_launches"][name]),
-               "qpd_launches": int(record["qpd_launches"][name])}
+               "qpd_launches": int(record["qpd_launches"][name]),
+               "glob_step_launches": int(
+                   record["glob_step_launches"][name]),
+               "glob_launches": int(record["glob_launches"][name]),
+               "glob_obbt_launches": int(
+                   record["glob_obbt_launches"][name])}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             row[key] = r.pop(key)

@@ -1,5 +1,11 @@
 """Constructive heuristic for square-encoded trimloss models (tls*).
 
+Port of minotaur_tpu/bnb/trimloss.py, with one repair: the pattern-cover
+cuts of `trimloss_valid_rows` (family (v)) are emitted only when every
+pattern has a row forcing m_j = 0 at y_j = 0 (`_cap_gated`); the JAX
+package keys them on the y <= m gating rows alone, which do not make
+the cuts valid.
+
 The reference reaches trimloss incumbents only through deep tree descent:
 QGHandler fixes the integers of an integral LP solution and polishes with
 an NLP solve (QGHandler.cpp:205 fixInts_, :627 solveNLP_) — but on the
@@ -354,6 +360,35 @@ def construct_trimloss(p: Problem, st: Optional[TrimlossStructure] = None,
     return x, float(p.eval_objective(x))
 
 
+def _cap_gated(p: Problem, g: _SqGroup) -> bool:
+    """Whether a linear row  sum_k k b_k - C y <= 0  (C > 0, any positive
+    scale, or its mirror  C y - sum_k k b_k >= 0)  ties the pattern's
+    multiplicity m = sum_k k b_k to its gate y: y = 0 forces m = 0, which
+    the cover cuts' validity needs (a pattern with y_j = 0 is unused).
+    The y <= m gating rows alone say only that y = 1 needs m >= 1."""
+    want = {b: float(k) for k, b in enumerate(g.bvars, start=1)}
+    for c in p.cons:
+        if c.fun.nlf is not None or c.fun.qf is not None or c.fun.lf is None:
+            continue
+        terms = dict(c.fun.lf.terms)
+        if set(terms) != set(want) | {g.y_var}:
+            continue
+        if not np.isfinite(c.lb) and np.isfinite(c.ub) and abs(c.ub) < 1e-12:
+            sign = 1.0
+        elif not np.isfinite(c.ub) and np.isfinite(c.lb) and \
+                abs(c.lb) < 1e-12:
+            sign = -1.0
+        else:
+            continue
+        scale = sign * terms[g.bvars[0]]
+        if scale <= 0 or sign * terms[g.y_var] >= 0:
+            continue
+        if all(abs(sign * terms[b] - scale * k) <= 1e-9 * scale
+               for b, k in want.items()):
+            return True
+    return False
+
+
 def trimloss_valid_rows(p: Problem,
                         st: Optional[TrimlossStructure] = None,
                         ) -> List[Tuple[np.ndarray, float, float]]:
@@ -410,7 +445,7 @@ def trimloss_valid_rows(p: Problem,
     # sum_{j not in S} y_j >= 1.  Also the aggregate Chvatal form
     # sum_j y_j >= k* (k* = min size of a sufficient subset).  These
     # close the y-cost part of the lb that the m-rows cannot see.
-    have_y = all(g.y_var >= 0 for g in st.m_groups)
+    have_y = all(g.y_var >= 0 and _cap_gated(p, g) for g in st.m_groups)
     if have_y and P <= 12:
         caps = np.array([g.cap for g in st.m_groups], dtype=float)
         full = caps[None, :] * Kij                    # (I, P) max pieces

@@ -9,6 +9,9 @@ matrix (`nl_Q`) and its body graph's tables (`nl_body`), the FBBT graphs
 tables (op, arg1, arg2, const, var, root).  A JAX `StagedProblem` keeps
 its bodies only as staged callables, so for it the nonlinear fields are
 read from the `Problem` it was staged from (`staged_fields(sp, p)`).
+
+`glob_staged_from_numpy` does the same for the global pipeline's
+transformed problem (`GlobStaged`, term-separable standard form).
 """
 
 from __future__ import annotations
@@ -111,3 +114,45 @@ def staged_from_numpy(fields: Mapping, name: str = "staged") -> StagedProblem:
     if sp.Qobj is not None and sp.Qobj.shape != (n, n):
         raise ValueError("staged_from_numpy: Qobj must be (n, n)")
     return sp
+
+
+GLOB_FIELDS = ("n_x", "n_y", "c", "obj_const", "A", "clb", "cub", "vlb",
+               "vub", "int_mask", "term_i", "term_j", "term_y", "uni_f",
+               "uni_x", "uni_y", "uni_k", "tri_vars", "tri_y", "tri_lam0",
+               "quad_vars", "quad_y", "quad_lam0")
+_GLOB_INT = ("term_i", "term_j", "term_y", "uni_f", "uni_x", "uni_y",
+             "tri_vars", "tri_y", "tri_lam0", "quad_vars", "quad_y",
+             "quad_lam0")
+
+
+def glob_staged_from_numpy(fields, name: str = "glob"):
+    """The port's GlobStaged from the numpy fields of a GlobStaged of
+    either package, or of a dict with the same names (copies every
+    array): term, univariate, trilinear and quadrilinear index arrays,
+    A, row and variable bounds, the objective and int_mask."""
+    from .glob.transformer import GlobStaged
+    get = fields.get if isinstance(fields, Mapping) else \
+        (lambda k, d=None: getattr(fields, k, d))
+    kw = {}
+    for f in GLOB_FIELDS:
+        v = get(f)
+        if v is None or f in ("n_x", "n_y", "obj_const"):
+            kw[f] = v
+        elif f in _GLOB_INT:
+            kw[f] = np.array(v, dtype=np.int32)
+        elif f == "int_mask":
+            kw[f] = np.array(v, dtype=bool)
+        else:
+            kw[f] = np.array(v, dtype=np.float64)
+    kw["n_x"], kw["n_y"] = int(kw["n_x"]), int(kw["n_y"])
+    kw["obj_const"] = float(kw["obj_const"])
+    gs = GlobStaged(name=str(get("name", name)), **kw)
+    nz = gs.n
+    if gs.A.shape[1:] != (nz,) or gs.clb.shape != (gs.A.shape[0],) or \
+            gs.cub.shape != gs.clb.shape:
+        raise ValueError("glob_staged_from_numpy: A, clb, cub disagree")
+    for nm in ("vlb", "vub", "int_mask"):
+        if getattr(gs, nm).shape != (nz,):
+            raise ValueError(f"glob_staged_from_numpy: {nm} must be "
+                             f"({nz},)")
+    return gs

@@ -2,10 +2,14 @@
 
 Port of minotaur_tpu/engines/ipm.py.  The JAX engine is a one-lane solver
 vmapped over lanes; here every function takes the lane axis explicitly:
-bounds, starts and iterates are (B, .) tensors and the problem data (A,
-c, Q) is shared.  The math, the two-phase drive, the certificates and the
-status machine follow the JAX code line by line; its docstrings explain
-the derivations.
+bounds, starts and iterates are (B, .) tensors and the problem data (c,
+Q) is shared.  The constraint data is shared too ((m, n) `A`, (m,)
+`clb`/`cub`) or carries one matrix and one row range per lane ((B, m, n)
+and (B, m), the global path's box-dependent envelope rows, which the JAX
+package gets from `vmap` over this solver); the row structure (equality
+rows, x-space or m-space) is static either way.  The math, the two-phase
+drive, the certificates and the status machine follow the JAX code line
+by line; its docstrings explain the derivations.
 
 `vmap` of a `while_loop` keeps a finished lane's carry frozen while the
 other lanes iterate.  `_while` does the same with a per-lane `active`
@@ -204,6 +208,25 @@ def _make_spd_solver(M: torch.Tensor, opts: IPMOptions, use_f32=None,
     return solve, (bad & bad2)
 
 
+def _mv(A, v):
+    """A v for every lane: A (m, n) shared or (B, m, n) per lane, v (B, n)."""
+    if A.dim() == 2:
+        return v @ A.T
+    return torch.matmul(A, v.unsqueeze(-1)).squeeze(-1)
+
+
+def _tv(A, v):
+    """A' v for every lane: A (m, n) shared or (B, m, n) per lane, v (B, m)."""
+    if A.dim() == 2:
+        return v @ A
+    return torch.matmul(v.unsqueeze(-2), A).squeeze(-2)
+
+
+def _T(A):
+    """A' of a shared (m, n) or per-lane (B, m, n) operator."""
+    return A.transpose(-1, -2)
+
+
 def _split64(a):
     """hi/lo f32 split of an f64 operand (hi + lo == a exactly)."""
     hi = a.to(F32)
@@ -211,24 +234,25 @@ def _split64(a):
 
 
 def _spmv(hi_lo, v64, trans=False):
-    """f64-class product of a SHARED f64 operator with the lane rows of
-    v64 via hi/lo f32 matmuls (see the JAX spmv): op @ v per lane, or
-    op.T @ v with trans."""
+    """f64-class product of an f64 operator (shared, or one per lane) with
+    the lane rows of v64 via hi/lo f32 matmuls (see the JAX spmv): op @ v
+    per lane, or op.T @ v with trans."""
     hi, lo = hi_lo
-    if not trans:
-        hi, lo = hi.T, lo.T
+    prod = _tv if trans else _mv
     vh = v64.to(F32)
     vl = (v64 - vh.to(F64)).to(F32)
-    main = vh @ hi
-    corr = vl @ hi + vh @ lo
+    main = prod(hi, vh)
+    corr = prod(hi, vl) + prod(lo, vh)
     return main.to(F64) + corr.to(F64)
 
 
 def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                         device="cuda") -> Callable:
     """Returns solve(A, clb, cub, vlb, vub, x0, y0=None) -> IPMResult on
-    lane-batched tensors (vlb, vub, x0: (B, n); y0: (B, m)); A, clb, cub
-    are shared.  `solve.with_objective(A, clb, cub, vlb, vub, x0, c_in,
+    lane-batched tensors (vlb, vub, x0: (B, n); y0: (B, m)); A (m, n),
+    clb, cub (m,) are shared, or A (B, m, n), clb, cub (B, m) give each
+    lane its own rows (the equality-row mask still comes from sp.clb and
+    sp.cub).  `solve.with_objective(A, clb, cub, vlb, vub, x0, c_in,
     y0=None)` swaps the linear objective (c_in: (n,) or (B, n))."""
     dev = resolve_device(device)
     check_fp32_matmul(dev)
@@ -292,7 +316,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
         return g
 
     def g_con(A, x):
-        v = x @ A.T
+        v = _mv(A, x)
         if con_nl is not None:
             v = v.index_add(1, nl_rows, con_nl(x))
         return v
@@ -365,7 +389,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             du = torch.where(fin_u, uz - z, 1.0)
             return torch.clamp(dl, min=1e-14), torch.clamp(du, min=1e-14)
 
-        # shared operators: f64, f32 copy, and the hi/lo split
+        # the operators (shared or per lane): f64, f32 copy, hi/lo split
         A32 = A.to(F32)
         A_sp = _split64(A)
         absA32 = A32.abs()
@@ -396,11 +420,11 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             if has_nl:
                 return residuals_nl(z, y, zl, zu)[:3]
             x, s = z[:, :n], z[:, n:]
-            rd_x = grad_f(x, c_in) + y @ A - zl[:, :n] + zu[:, :n]
+            rd_x = grad_f(x, c_in) + _tv(A, y) - zl[:, :n] + zu[:, :n]
             rd_s = -y - zl[:, n:] + zu[:, n:]
             rd_x = torch.where(fixed_x, 0.0, rd_x)
             rd_s = torch.where(fixed_s, 0.0, rd_s)
-            rp = x @ A.T - s
+            rp = _mv(A, x) - s
             return rd_x, rd_s, rp
 
         def residuals32(z, y, zl, zu):
@@ -408,11 +432,11 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             x, s = z[:, :n].to(F32), z[:, n:].to(F32)
             yk = y.to(F32)
             gf = c32 + x @ Qsym32 if has_q else c32
-            rd_x = gf + yk @ A32 - zl[:, :n].to(F32) + zu[:, :n].to(F32)
+            rd_x = gf + _tv(A32, yk) - zl[:, :n].to(F32) + zu[:, :n].to(F32)
             rd_s = -yk - zl[:, n:].to(F32) + zu[:, n:].to(F32)
             rd_x = torch.where(fixed_x, 0.0, rd_x)
             rd_s = torch.where(fixed_s, 0.0, rd_s)
-            rp = x @ A32.T - s
+            rp = _mv(A32, x) - s
             return rd_x, rd_s, rp
 
         def residuals_nl(z, y, zl, zu):
@@ -489,9 +513,9 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             phase's in-loop exits, which are re-confirmed in f64."""
             tc = _cert_clamp_t(y, e)
             Ae, absAe = (A, A.abs()) if e["dt"] == F64 else (A32, absA32)
-            r = -(tc @ Ae)
+            r = -_tv(Ae, tc)
             g0 = _cert_lp_terms(tc, r, 0.0, e)
-            mat_mag = (tc.abs() @ absAe).sum(dim=1)
+            mat_mag = _tv(absAe, tc.abs()).sum(dim=1)
             return g0 > margin * (1.0 + _cert_scale(tc, r, mat_mag, e))
 
         def farkas_sp(y):
@@ -503,12 +527,12 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             slack_pen = ((r - rc).abs() * e64["box"]).sum(dim=1)
             g0 = _row_term(tc) + _col_term(rc) - slack_pen
             g0 = torch.where(torch.isnan(g0), -_BIG, g0)
-            mat_mag = (tc.abs().to(F32) @ absA32).sum(dim=1).to(F64)
+            mat_mag = _tv(absA32, tc.abs().to(F32)).sum(dim=1).to(F64)
             return g0 > 1e-5 * (1.0 + _cert_scale(tc, r, mat_mag))
 
         def qp_cert_bound(y):
             tc = _cert_clamp_t(y)
-            r = c_in - tc @ A
+            r = c_in - _tv(A, tc)
             alpha = r @ q_eigV
             quad_min = -0.25 * torch.where(
                 q_wpos, alpha * alpha / torch.clamp(q_eigw, min=1e-30),
@@ -518,7 +542,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
 
         def dual_cert_bound(y):
             tc = _cert_clamp_t(y)
-            return _cert_lp_terms(tc, c_in - tc @ A, sp.obj_const)
+            return _cert_lp_terms(tc, c_in - _tv(A, tc), sp.obj_const)
 
         if is_lp:
             cert_f64 = dual_cert_bound
@@ -638,15 +662,15 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     ineq_w = torch.where(eq_mask, 0.0, Ds_d) if m_eq else Ds_d
                     mxa = mx64.to(adt)
                     w_a = ineq_w.to(adt)
-                    gram = torch.matmul(A_a.T * w_a[:, None, :], A_a)
+                    gram = torch.matmul(_T(A_a) * w_a[:, None, :], A_a)
                     core = gram if is_lp else gram + Qsym_a
                     Mx = core * (mxa[:, :, None] * mxa[:, None, :]) + \
                         torch.diag_embed(Dx_diag.to(dt).to(adt))
                     solve_mx, _ = _make_spd_solver(Mx, sopts, use_f32,
                                                    out_dtype=dt)
                     if m_eq:
-                        Ae = A_d[eq_rows]
-                        MeJ = solve_mx(mx_d[:, :, None] * Ae.T[None])
+                        Ae = A_d.index_select(-2, eq_rows)
+                        MeJ = solve_mx(mx_d[:, :, None] * _T(Ae))
                         S = torch.matmul(Ae, mx_d[:, :, None] * MeJ) + \
                             1e-10 * torch.eye(m_eq, dtype=dt, device=dev)
                         solve_s, _ = _make_spd_solver(S, sopts, use_f32,
@@ -654,16 +678,16 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
 
                     def raw_xyz(rhs1, rhs2, rhs3):
                         r2, r3 = rhs2.to(dt), rhs3.to(dt)
-                        rx = rhs1 + mx_d * ((ineq_w * r3 + r2) @ A_d)
+                        rx = rhs1 + mx_d * _tv(A_d, ineq_w * r3 + r2)
                         rx = torch.where(fixed_x, 0.0, rx)
                         if m_eq:
                             t = solve_mx(rx)
-                            dy_eq = solve_s((mx_d * t) @ Ae.T - r3[:, eq_rows])
+                            dy_eq = solve_s(_mv(Ae, mx_d * t) - r3[:, eq_rows])
                             dx = t - torch.matmul(MeJ, dy_eq[:, :, None])[:, :, 0]
                         else:
                             dx = solve_mx(rx)
                         dx = torch.where(fixed_x, 0.0, dx)
-                        ds = dx @ A_d.T - r3
+                        ds = _mv(A_d, dx) - r3
                         dy = Ds_d * ds - r2
                         if m_eq:
                             # equality slacks do not move; their
@@ -673,20 +697,20 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                         return dx, ds, dy
 
                     def corr_resid(dxc, dsc, dyc):
-                        # residuals against the shared structured operator
-                        # in cdt (f32 products against the f32 copies, or
-                        # f64 ones)
+                        # residuals against the structured operator in cdt
+                        # (f32 products against the f32 copies, or f64
+                        # ones)
                         wdx = Dx_diag.to(cdt) * dxc
                         if cdt == F32:
                             if not is_lp:
                                 wdx = wdx + mx32 * ((mx32 * dxc) @ Qsym32)
-                            jt = dyc @ A32
-                            jdx = dxc @ A32.T
+                            jt = _tv(A32, dyc)
+                            jdx = _mv(A32, dxc)
                         else:
                             if not is_lp:
                                 wdx = wdx + mx64 * ((mx64 * dxc) @ Qsym)
-                            jt = mx64 * (dyc @ A)
-                            jdx = dxc @ A.T
+                            jt = mx64 * _tv(A, dyc)
+                            jdx = _mv(A, dxc)
                         return wdx + jt, Ds.to(cdt) * dsc - dyc, jdx - dsc
 
                     def solve_xyz(rhs1, rhs2, rhs3, rounds):
@@ -710,16 +734,16 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     Ds_d = Ds.to(dt)
                     Hinv = torch.where(fixed_x, 0.0, 1.0 / Dx_diag).to(dt)
                     Ha = Hinv.to(adt)
-                    Mf = torch.matmul(A_a * Ha[:, None, :], A_a.T) + \
+                    Mf = torch.matmul(A_a * Ha[:, None, :], _T(A_a)) + \
                         torch.diag_embed((1.0 / Ds_d).to(adt))
                     solve_m, _ = _make_spd_solver(Mf, sopts, use_f32,
                                                   out_dtype=dt)
 
                     def raw_m(rhs1, rhs2, rhs3):
                         r1, r2 = rhs1.to(dt), rhs2.to(dt)
-                        rhs_y = (Hinv * r1) @ A_d.T - rhs3.to(dt) - r2 / Ds_d
+                        rhs_y = _mv(A_d, Hinv * r1) - rhs3.to(dt) - r2 / Ds_d
                         dy = solve_m(rhs_y)
-                        dx = Hinv * (r1 - dy @ A_d)
+                        dx = Hinv * (r1 - _tv(A_d, dy))
                         ds = (dy + r2) / Ds_d
                         return dx, ds, dy
 
@@ -731,8 +755,8 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                             for _ in range(rounds):
                                 dxc, dsc, dyc = dx.to(cdt), ds.to(cdt), \
                                     dy.to(cdt)
-                                jt = dyc @ Ac
-                                jdx = dxc @ Ac.T
+                                jt = _tv(Ac, dyc)
+                                jdx = _mv(Ac, dxc)
                                 e1 = torch.where(
                                     fixed_x, 0.0,
                                     rhs1.to(cdt) - (cDx * dxc + jt))

@@ -2,8 +2,8 @@
 
 Checked in a fresh interpreter (this test process has jax loaded by
 conftest): import every module of minotaur_tpu_torch (the NL path, the
-readers, the QG/OA path, the solver CLIs, the node store, QPD and the
-sweep included), then look at
+readers, the QG/OA path, the global path, the solver CLIs, the node
+store, QPD and the sweep included), then look at
 sys.modules.  The port keeps its own copies of the JAX package's
 numpy-only modules; those copied as they are must stay byte-equal to
 the JAX package's file.
@@ -40,7 +40,9 @@ for name in ("ops.stage", "ops.interval", "engines.staging", "convert",
              "bnb.oa", "solvers.mqg", "solvers.moa", "solvers.mlstoa",
              "solvers.mqgpar", "solvers.msbnb", "solvers.mmultistart",
              "native", "bnb.checkpoint", "bnb.qpd", "tools.sweep",
-             "engines.factory", "ir.polynomial", "utils.operations"):
+             "engines.factory", "ir.polynomial", "utils.operations",
+             "glob", "glob.transformer", "glob.univariate", "glob.rlt",
+             "glob.glob_step", "glob.glob_bnb", "solvers.mglob"):
     assert "minotaur_tpu_torch." + name in names, name
 assert not bad, bad
 """
@@ -69,12 +71,12 @@ VERBATIM = (
     "utils/__init__.py", "utils/types.py", "utils/options.py",
     "utils/logger.py", "utils/timer.py", "utils/environment.py",
     "ir/expr.py", "ir/functions.py", "ir/problem.py", "ops/opcodes.py",
-    "bnb/node.py", "bnb/solpool.py", "bnb/trimloss.py", "bnb/nlpres.py",
+    "bnb/node.py", "bnb/solpool.py", "bnb/nlpres.py",
     "bnb/bin2lin.py", "bnb/cuts.py", "bnb/persp.py", "bnb/checkpoint.py",
     "ir/polynomial.py", "utils/operations.py", "native/treestore.cpp",
     "models/generators.py", "models/convex_suite.py",
     "io/nl_reader.py", "io/nl_writer.py", "io/mps_reader.py",
-    "io/sol_writer.py", "io/gams_reader.py",
+    "io/sol_writer.py", "io/gams_reader.py", "glob/transformer.py",
 )
 
 
