@@ -51,7 +51,19 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
      (capped) against its analytic optimum; (c) the `mglob` CLI on a
      nonconvex qknap(16) at its enumeration optimum and on a convex MIQP
      forwarded to QG; (d) `obbt 1` on qknap(24), sound, with K1 and K2
-     at the OBBT lanes' shape against plain.
+     at the OBBT lanes' shape against plain;
+ 11. the multi-device layer, its partitions all on the one card: (a) the
+     sharded step (four partitions of 16 lanes) against the unsharded
+     step on phase 5's 64 boxes of intquad(300), statuses equal lane by
+     lane, objectives within phase 5's tolerance, the fused bound equal
+     to the host's min; (b) DistQGBranchAndBound on normcon(1024, 7) at
+     four partitions of 16 lanes, lb_frequency 2 (capped), sound, with
+     a rebalance, per-partition counts that sum to the total, and both
+     kernels launched; (c) K1 in f32 at (16, 1024, 1024) and K2 refine 2
+     at (16, 1024), the partition shapes, against plain; (d) `mqgmpi
+     --spawn 2` with both ranks on cuda:0 on correlated_knapsack(30, 1)
+     at the DP optimum with nodes migrated, and the `mqgdist` CLI on the
+     same file, the two command lines at once on the card.
 
 Every phase prints one line; any failed check raises and the process
 exits non-zero without the final line.  The next-to-last line is the
@@ -95,6 +107,13 @@ CKPT = dict(node_cap=320, time_cap=10.0)
 # at obbt_cap (10d)
 GLOB = dict(n=100, density=0.25, seed=0, B=64, time_cap=60.0, pairs=64,
             pool_cap=30.0, cli_n=16, obbt_n=24, obbt_cap=15.0)
+# phase 11: the multi-device layer on one card: `parts` partitions of
+# B / parts lanes; 11b runs DistQGBranchAndBound on normcon(n, seed)
+# capped at node_cap nodes and time_cap seconds; 11d runs `mqgmpi --spawn
+# ranks` and `mqgdist` on correlated_knapsack(*knap)
+DIST = dict(n=1024, seed=7, B=64, parts=4, lb_frequency=2, node_cap=16,
+            time_cap=40.0, ranks=2, knap=(30, 1), knap_batch=16,
+            knap_lb_frequency=3)
 # phase 6: intquad(300)'s search at the bench settings, capped at this
 # many nodes (8192 before PR 8)
 MAIN_NODE_CAP = 1024
@@ -1750,6 +1769,212 @@ def phase_glob_obbt(record):
     record["glob_obbt_launches"] = obbt["launches"]
 
 
+def phase_dist_step(record):
+    """11a: the sharded step over four partitions on the card against the
+    unsharded step on phase 5's boxes, under phase 5's two policies."""
+    import numpy as np
+    from minotaur_tpu_torch.bnb.step import StepOptions, build_node_step
+    from minotaur_tpu_torch.engines.ipm import IPMOptions
+    from minotaur_tpu_torch.engines.staging import stage_problem
+    from minotaur_tpu_torch.models.convex_suite2 import intquad
+    from minotaur_tpu_torch.parallel.pool import build_sharded_step
+    from minotaur_tpu_torch.tools.ipm_routes import POLICIES, phase5_boxes
+    sp = stage_problem(intquad(300, 4, 0))
+    B, parts = DIST["B"], DIST["parts"]
+    lo, hi = phase5_boxes(sp, B)
+    x0, y0 = np.zeros((B, sp.n)), np.zeros((B, sp.m))
+    lines = []
+    for label, kw in (("f64", dict(factor_f32=False, tail_factor_f32=False)),
+                      ("bench", POLICIES["bench"])):
+        opts = StepOptions(ipm=IPMOptions(**kw))
+        obj_tol = 1e-6 if label == "f64" else 10 * opts.ipm.tail_tol
+        whole = build_node_step(sp, opts, device=DEVICE)
+        sharded = build_sharded_step(sp, opts, [DEVICE] * parts)
+        t0 = time.monotonic()
+        ru = whole(sp.A, sp.clb, sp.cub, lo, hi, x0, y0)
+        t_u = time.monotonic() - t0
+        t0 = time.monotonic()
+        rs, gub = sharded(sp.A, sp.clb, sp.cub, lo, hi, x0, y0, np.inf)
+        t_s = time.monotonic() - t0
+        diff = np.where(rs.status != ru.status)[0]
+        check(diff.size == 0, f"11a ({label}): sharded statuses differ from "
+              f"unsharded on lanes {diff.tolist()}: {rs.status[diff]} vs "
+              f"{ru.status[diff]}")
+        both = (rs.status == 1) & (ru.status == 1)
+        rel = np.where(both, np.abs(rs.obj - ru.obj) / (1 + np.abs(ru.obj)),
+                       0.0)
+        check(rel.max() <= obj_tol, f"11a ({label}): objective mismatch "
+              f"{rel.max():.3g}")
+        ok = rs.int_feasible & (rs.status == 1)
+        host = float(np.min(rs.obj[ok], initial=np.inf))
+        check(gub == host, f"11a ({label}): fused bound {gub} vs host {host}")
+        same_it = int((rs.iters == ru.iters).sum())
+        lines.append(f"{label}: statuses equal {B}/{B}, iterations equal "
+                     f"{same_it}/{B}, max|dobj|/(1+|obj|) {rel.max():.3g}, "
+                     f"fused bound {gub:.10g} = host min; wall s unsharded "
+                     f"{t_u:.2f} sharded {t_s:.2f}")
+    say(f"[11a] sharded step intquad(300) B={B} as {parts} partitions of "
+        f"{B // parts} on {DEVICE} vs unsharded ok: " + "; ".join(lines))
+
+
+def phase_dist_qg(record):
+    """11b: DistQGBranchAndBound on normcon(n) at `parts` partitions of
+    B / parts lanes on the card (capped): sound, a rebalance, the
+    per-partition counts summing to the total, both kernels launched."""
+    from minotaur_tpu_torch import device as mdev
+    from minotaur_tpu_torch.models.convex_suite import normcon, \
+        normcon_optimum
+    from minotaur_tpu_torch.parallel.dist_bnb import DistQGBranchAndBound
+    n, seed, parts = DIST["n"], DIST["seed"], DIST["parts"]
+    opt = normcon_optimum(n, seed)
+    env = qg_env(node_batch=DIST["B"], lb_frequency=DIST["lb_frequency"],
+                 bnb_node_limit=DIST["node_cap"],
+                 bnb_time_limit=DIST["time_cap"])
+    t_build = time.monotonic()
+    bab = DistQGBranchAndBound(normcon(n, seed), [DEVICE] * parts, env=env)
+    t_build = time.monotonic() - t_build
+    # IPM iterations of the partitioned supersteps: [calls, max a lane,
+    # lane sum], and their wall seconds
+    its = [0, 0, 0, 0.0]
+    sharded = bab._sharded
+
+    def counted(*args):
+        t0 = time.monotonic()
+        res, gub = sharded(*args)
+        its[0] += 1
+        its[1] = max(its[1], int(res.iters.max()))
+        its[2] += int(res.iters.sum())
+        its[3] += time.monotonic() - t0
+        return res, gub
+
+    bab._sharded = counted
+    w = WallSplit()
+    w.wrap(bab, "_qg_root", "root", context=True)
+    w.wrap(bab, "_dispatch_oracle", "fix-int NLP oracle", context=True)
+    w.wrap(bab, "_run_dive", "master dives", context=True)
+    mdev.reset_launches()
+    t0 = time.monotonic()
+    st = bab.solve()
+    dt = time.monotonic() - t0
+    counts = mdev.launch_counts()
+    tol = 1e-6 * (1 + abs(opt))
+    check(bab.lb <= opt + tol and opt <= bab.ub + tol,
+          f"DistQG normcon_{n} unsound: lb {bab.lb} opt {opt} ub {bab.ub}")
+    check(bab.stats.rebalances >= 1, "DistQG: no rebalance ran")
+    per = [p.nodes_processed for p in bab.pools]
+    check(sum(per) == bab.stats.nodes_processed,
+          f"DistQG: partition counts {per} vs {bab.stats.nodes_processed}")
+    for name, cnt in counts.items():
+        check(cnt > 0, f"kernel {name} was not launched by DistQG")
+    nodes = max(1, bab.stats.nodes_processed)
+    loop = dt - w.s.get("root", 0.0)
+    steps = max(1, bab.stats.batches)
+    say(f"[11b] DistQG normcon_{n} {parts} partitions x {DIST['B'] // parts} "
+        f"lanes on {DEVICE}: status {st.name} lb {bab.lb:.10g} opt "
+        f"{opt:.10g} ub {bab.ub:.10g}; nodes {nodes} in {dt:.2f} s = "
+        f"{nodes / dt:.2f} nodes/s (constructor {t_build:.2f} s, root "
+        f"{w.s.get('root', 0.0):.2f} s); supersteps {bab.stats.batches}, "
+        f"{loop / steps:.2f} s a superstep after the root; partitioned "
+        f"steps {its[3]:.2f} s ({its[3] / max(1, its[0]):.2f} s a call, "
+        f"{its[0]} calls of {parts} IPM calls, max {its[1]} IPM iterations "
+        f"a lane, {its[2] / max(1, its[0] * DIST['B']):.1f} a lane on "
+        f"average); oracle {w.s.get('fix-int NLP oracle', 0.0):.2f} s "
+        f"({w.calls.get('fix-int NLP oracle', 0)} calls); dives "
+        f"{w.s.get('master dives', 0.0):.2f} s; rebalances "
+        f"{bab.stats.rebalances}, migrated {bab.stats.nodes_migrated}; per "
+        f"partition {per}; cuts {bab.qg_stats.cuts_added}; launches "
+        f"{{{', '.join(f'{k}: {v}' for k, v in counts.items())}}}")
+    record["dist_launches"] = counts
+
+
+def phase_dist_kernels(record):
+    """11c: K1 f32 and K2 refine 2 at one partition's shape."""
+    B, k, steps = DIST["B"] // DIST["parts"], DIST["n"], 2
+    k1, k2 = f32_kernels_vs_plain(B, k, (41, 43), steps)
+    say("[11c] " + kernels_line(B, k, steps, k1, k2).replace(
+        "f32:", "f32 (one partition's master factor):", 1))
+    record_kernels(record, f"dist_f32_k{k}_b{B}_", f"dist_refine{steps}_k{k}_b{B}_",
+                   k1, k2)
+
+
+def phase_dist_cli(record):
+    """11d: `mqgmpi --spawn 2` with both ranks on cuda:0, and `mqgdist`, on
+    correlated_knapsack(30, 1) written by the port's nl_writer."""
+    from ast import literal_eval
+
+    import torch
+    from minotaur_tpu_torch.io.nl_writer import write_nl
+    from minotaur_tpu_torch.models.generators import (correlated_knapsack,
+                                                      knapsack_dp_optimum)
+    knap = DIST["knap"]
+    dp = knapsack_dp_optimum(*knap)
+    opts = ["--node_batch", str(DIST["knap_batch"]), "--lb_frequency",
+            str(DIST["knap_lb_frequency"])]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cknap30.nl")
+        write_nl(correlated_knapsack(*knap), path)
+        env = dict(os.environ, PYTHONPATH=HERE)
+        # the two command lines run at once, sharing the card
+        procs = {}
+        for name, extra in (("mqgmpi", ["--spawn", str(DIST["ranks"]),
+                                        "--log_level", "1"]),
+                            ("mqgdist", [])):
+            fo = open(os.path.join(tmp, name + ".log"), "w+")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", f"minotaur_tpu_torch.solvers.{name}",
+                 path] + extra + opts, cwd=tmp, env=env, stdout=fo,
+                stderr=subprocess.STDOUT, text=True), fo, time.monotonic())
+        outs = {}
+        try:
+            while len(outs) < len(procs):
+                for name, (proc, fo, t0) in procs.items():
+                    if name in outs or proc.poll() is None:
+                        continue
+                    fo.seek(0)
+                    outs[name] = (fo.read(), time.monotonic() - t0)
+                    check(proc.returncode == 0, f"{name} exited "
+                          f"{proc.returncode}:\n{outs[name][0][-3000:]}")
+                check(time.monotonic() - t0 < 420,
+                      f"11d: still running after 420 s: "
+                      f"{sorted(set(procs) - set(outs))}")
+                time.sleep(0.2)
+        finally:
+            for proc, fo, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                fo.close()
+    log, dt = outs["mqgmpi"]
+    lines = {line.split(":", 1)[0]: line.split(":", 1)[1].strip()
+             for line in log.splitlines() if ":" in line}
+    check(lines.get("status") == "SOLVED_OPTIMAL", f"mqgmpi status: {log[-2000:]}")
+    best = float(lines["best objective"].split()[0])
+    check(abs(best - dp) <= 1e-9 * (1 + abs(dp)),
+          f"mqgmpi objective {best} vs DP {dp}")
+    devices = literal_eval(lines["devices"])
+    cards = torch.cuda.device_count()
+    check(devices == [f"cuda:{r % cards}" for r in range(DIST["ranks"])],
+          f"mqgmpi devices {devices}")
+    seen = literal_eval(lines["per-rank counts seen by each rank"])
+    check(all(s == seen[0] for s in seen), f"mqgmpi per-rank lists {seen}")
+    migrated = literal_eval(lines["migrated in per rank"])
+    check(sum(migrated) > 0, "mqgmpi: no node migrated")
+    say(f"[11d] mqgmpi --spawn {DIST['ranks']} on {devices}: SOLVED_OPTIMAL "
+        f"best {best:.10g} (DP {dp:.10g}), nodes per rank "
+        f"{lines['nodes per rank']} (each rank's list {seen[0]}), migrated "
+        f"in per rank {migrated}; {dt:.2f} s including the processes' start")
+    log, dt = outs["mqgdist"]
+    objs = [float(line.rsplit(" ", 1)[1]) for line in log.splitlines()
+            if "best objective:" in line]
+    check(len(objs) == 1 and abs(objs[0] - dp) <= 1e-9 * (1 + abs(dp)),
+          f"mqgdist objective {objs} vs DP {dp}")
+    part = [line for line in log.splitlines() if "partitions:" in line]
+    stat = [line for line in log.splitlines() if "status:" in line]
+    say(f"[11d] mqgdist CLI on cknap30.nl: exit 0 in {dt:.2f} s, "
+        f"{stat[-1].strip()}, best objective {objs[0]:.10g}; "
+        f"{part[-1].strip()}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "minotaur_tpu_torch")):
         print("chip_smoke: minotaur_tpu_torch not found next to this "
@@ -1769,7 +1994,8 @@ def main() -> int:
                   phase_qg_small, phase_qg_kernels, phase_qg_full,
                   phase_qg_cli, phase_f32_path, phase_qpd,
                   phase_ckpt_sos_weak, phase_glob_step, phase_glob_full,
-                  phase_glob_cli, phase_glob_obbt):
+                  phase_glob_cli, phase_glob_obbt, phase_dist_step,
+                  phase_dist_qg, phase_dist_kernels, phase_dist_cli):
         t0 = time.monotonic()
         phase(record)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)
@@ -1793,7 +2019,8 @@ def main() -> int:
                    record["glob_step_launches"][name]),
                "glob_launches": int(record["glob_launches"][name]),
                "glob_obbt_launches": int(
-                   record["glob_obbt_launches"][name])}
+                   record["glob_obbt_launches"][name]),
+               "dist_launches": int(record["dist_launches"][name])}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             row[key] = r.pop(key)

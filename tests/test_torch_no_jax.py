@@ -3,7 +3,7 @@
 Checked in a fresh interpreter (this test process has jax loaded by
 conftest): import every module of minotaur_tpu_torch (the NL path, the
 readers, the QG/OA path, the global path, the solver CLIs, the node
-store, QPD and the sweep included), then look at
+store, QPD, the sweep and the multi-device layer included), then look at
 sys.modules.  The port keeps its own copies of the JAX package's
 numpy-only modules; those copied as they are must stay byte-equal to
 the JAX package's file.
@@ -42,7 +42,9 @@ for name in ("ops.stage", "ops.interval", "engines.staging", "convert",
              "native", "bnb.checkpoint", "bnb.qpd", "tools.sweep",
              "engines.factory", "ir.polynomial", "utils.operations",
              "glob", "glob.transformer", "glob.univariate", "glob.rlt",
-             "glob.glob_step", "glob.glob_bnb", "solvers.mglob"):
+             "glob.glob_step", "glob.glob_bnb", "solvers.mglob",
+             "parallel", "parallel.pool", "parallel.dist_bnb",
+             "parallel.multihost", "solvers.mqgdist", "solvers.mqgmpi"):
     assert "minotaur_tpu_torch." + name in names, name
 assert not bad, bad
 """
