@@ -63,7 +63,17 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
      at (16, 1024), the partition shapes, against plain; (d) `mqgmpi
      --spawn 2` with both ranks on cuda:0 on correlated_knapsack(30, 1)
      at the DP optimum with nodes migrated, and the `mqgdist` CLI on the
-     same file, the two command lines at once on the card.
+     same file, the two command lines at once on the card;
+ 12. the device-resident node pool (`device_tree`): (a) intquad(300) at
+     the bench settings and phase 6's node cap handed to the pool after
+     four host supersteps (pool of 4096 slots, 8 rounds a call), sound,
+     with device rounds run and K1 and K2 launched inside them, its
+     nodes/s, multiround calls, rounds a call, t_device/t_host and
+     spills beside phase 6's host loop; (b) correlated_knapsack(30, 1)
+     at node_batch 16 under the pool at 256 slots and at 64 slots
+     (4 x node_batch, the least the runner takes), both sound, the
+     64-slot pool spilling to the host tree, with status, nodes and
+     whether each closed at the DP optimum.
 
 Every phase prints one line; any failed check raises and the process
 exits non-zero without the final line.  The next-to-last line is the
@@ -117,6 +127,12 @@ DIST = dict(n=1024, seed=7, B=64, parts=4, lb_frequency=2, node_cap=16,
 # phase 6: intquad(300)'s search at the bench settings, capped at this
 # many nodes (8192 before PR 8)
 MAIN_NODE_CAP = 1024
+# phase 12: device_tree's pool slots, rounds a multiround call and host
+# supersteps before the handoff on the main path (12a, phase 6's caps);
+# 12b runs correlated_knapsack(*knap) at knap_batch lanes under pools of
+# knap_caps slots, each capped at knap_time seconds
+POOL = dict(cap=4096, rounds=8, warm=4, knap=(30, 1), knap_batch=16,
+            knap_caps=(256, 64), knap_time=90.0)
 # the bench's IPM settings (bench.py:78-95) as driver options
 BENCH_OPTIONS = (("node_batch", 64), ("pad_full", 1), ("ipm_max_iters", 28),
                  ("ipm_tail_kkt_rounds", 4), ("ipm_refine_steps", 0),
@@ -605,6 +621,9 @@ def phase_main_path(record):
     for name, cnt in counts.items():
         check(cnt > 0, f"kernel {name} was not launched by the main path")
     record["launches"] = counts
+    record["main"] = dict(nodes=nodes, seconds=dt, t_device=bab.stats.t_device,
+                          t_host=bab.stats.t_host, batches=bab.stats.batches,
+                          probes=bab.stats.probes, iters=facts)
 
 
 def phase_nl_kernels(record):
@@ -1975,6 +1994,116 @@ def phase_dist_cli(record):
         f"{part[-1].strip()}")
 
 
+def phase_device_tree(record):
+    """12: the device-resident node pool on the main path (12a) and a
+    pool too small for the search (12b)."""
+    from minotaur_tpu_torch import device as mdev
+    from minotaur_tpu_torch.bnb import device_pool
+    from minotaur_tpu_torch.bnb.bnb import BranchAndBound
+    from minotaur_tpu_torch.models.convex_suite2 import (intquad,
+                                                          intquad_optimum)
+    from minotaur_tpu_torch.models.generators import (correlated_knapsack,
+                                                      knapsack_dp_optimum)
+    from minotaur_tpu_torch.utils.environment import Environment
+
+    def pool_env(options):
+        env = Environment()
+        for k, v in options + (("device_tree", 1), ("log_level", 1)):
+            env.set_option(k, v)
+        return env
+
+    # launches inside device mode: read around every DevicePoolRunner.run
+    inside = dict.fromkeys(mdev.launch_counts(), 0)
+    run = device_pool.DevicePoolRunner.run
+
+    def counted_run(self, t0):
+        before = mdev.launch_counts()
+        try:
+            return run(self, t0)
+        finally:
+            for k, v in mdev.launch_counts().items():
+                inside[k] += v - before[k]
+
+    device_pool.DevicePoolRunner.run = counted_run
+    try:
+        # 12a: the main path at phase 6's settings and caps
+        env = pool_env(BENCH_OPTIONS + (
+            ("bnb_node_limit", MAIN_NODE_CAP), ("bnb_time_limit", 180.0),
+            ("device_rounds", POOL["rounds"]),
+            ("device_pool_cap", POOL["cap"]),
+            ("device_warm_batches", POOL["warm"])))
+        opt = intquad_optimum(300, 4, 0)
+        bab = BranchAndBound(intquad(300, 4, 0), env, device=DEVICE)
+        mdev.reset_launches()
+        t0 = time.monotonic()
+        st = bab.solve()
+        dt = time.monotonic() - t0
+        counts = mdev.launch_counts()
+        tol = 1e-6 * (1 + abs(opt))
+        check(bab.lb <= opt + tol <= bab.ub + 2 * tol,
+              f"12a unsound: lb {bab.lb} opt {opt} ub {bab.ub}")
+        pool = bab._dev_pool
+        check(pool is not None, "12a: the search never entered device mode")
+        check(pool.processed > 0, "12a: device rounds processed no node")
+        for name, cnt in inside.items():
+            check(cnt > 0, f"12a: kernel {name} not launched in device mode")
+        nodes = max(1, bab.stats.nodes_processed)
+        main = record["main"]
+        say(f"[12a] intquad_300 B=64 device_tree (pool {POOL['cap']}, "
+            f"{POOL['rounds']} rounds a call, handoff after {POOL['warm']} "
+            f"host supersteps): status {st.name} lb {bab.lb:.10g} opt "
+            f"{opt:.10g} ub {bab.ub:.10g}; nodes {nodes} in {dt:.2f} s = "
+            f"{nodes / dt:.2f} nodes/s (phase 6's host loop in this call: "
+            f"{main['nodes']} in {main['seconds']:.2f} s = "
+            f"{main['nodes'] / main['seconds']:.2f} nodes/s); device rounds "
+            f"processed {pool.processed} nodes in {pool.calls} multiround "
+            f"calls, {pool.rounds} rounds = "
+            f"{pool.rounds / max(1, pool.calls):.2f} a call; "
+            f"dispatch-to-fetch s {bab.stats.t_device:.2f} (sum of "
+            f"overlapping windows, as phase 6's) host bookkeeping s "
+            f"{bab.stats.t_host:.2f} (phase 6: {main['t_device']:.2f}, "
+            f"{main['t_host']:.2f}); spills {bab.stats.rebalances}; host "
+            f"supersteps {bab.stats.batches - pool.calls}, strong-branch "
+            f"probe lanes {bab.stats.probes}, IPM lane-iterations "
+            f"{bab.stats.ipm_iters} (phase 6: {main['batches']} supersteps, "
+            f"{main['probes']} probe lanes, {main['iters']} lane-iterations); "
+            f"launches in this solve {counts}, inside device mode "
+            f"{dict(inside)}")
+        record["device_tree_launches"] = dict(inside)
+
+        # 12b: a pool of 256 slots, and one of 64 that must spill
+        dp = knapsack_dp_optimum(*POOL["knap"])
+        tol = 1e-6 * (1 + abs(dp))
+        parts = []
+        for cap in POOL["knap_caps"]:
+            env = pool_env((("node_batch", POOL["knap_batch"]),
+                            ("device_pool_cap", cap),
+                            ("device_rounds", POOL["rounds"]),
+                            ("bnb_time_limit", POOL["knap_time"])))
+            bab = BranchAndBound(correlated_knapsack(*POOL["knap"]), env,
+                                 device=DEVICE)
+            t0 = time.monotonic()
+            st = bab.solve()
+            dt = time.monotonic() - t0
+            check(bab.lb <= dp + tol <= bab.ub + 2 * tol,
+                  f"12b pool {cap} unsound: lb {bab.lb} DP {dp} ub {bab.ub}")
+            check(bab._dev_pool is not None and bab._dev_pool.processed > 0,
+                  f"12b pool {cap}: no device round ran")
+            closed = st.name == "SOLVED_OPTIMAL" and abs(bab.ub - dp) <= tol
+            parts.append(
+                f"pool {cap}: {st.name} ub {bab.ub:.10g} nodes "
+                f"{bab.stats.nodes_processed} (device "
+                f"{bab._dev_pool.processed}) "
+                f"spills {bab.stats.rebalances} in {dt:.2f} s, "
+                f"{'closed' if closed else 'NOT closed'} at the DP optimum")
+        check(bab.stats.rebalances >= 1,
+              f"12b: the {POOL['knap_caps'][-1]}-slot pool never spilled")
+        say(f"[12b] correlated_knapsack{POOL['knap']} B={POOL['knap_batch']} "
+            f"device_tree (DP {dp:.10g}): " + "; ".join(parts))
+    finally:
+        device_pool.DevicePoolRunner.run = run
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "minotaur_tpu_torch")):
         print("chip_smoke: minotaur_tpu_torch not found next to this "
@@ -1995,7 +2124,8 @@ def main() -> int:
                   phase_qg_cli, phase_f32_path, phase_qpd,
                   phase_ckpt_sos_weak, phase_glob_step, phase_glob_full,
                   phase_glob_cli, phase_glob_obbt, phase_dist_step,
-                  phase_dist_qg, phase_dist_kernels, phase_dist_cli):
+                  phase_dist_qg, phase_dist_kernels, phase_dist_cli,
+                  phase_device_tree):
         t0 = time.monotonic()
         phase(record)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)
@@ -2020,7 +2150,9 @@ def main() -> int:
                "glob_launches": int(record["glob_launches"][name]),
                "glob_obbt_launches": int(
                    record["glob_obbt_launches"][name]),
-               "dist_launches": int(record["dist_launches"][name])}
+               "dist_launches": int(record["dist_launches"][name]),
+               "device_tree_launches": int(
+                   record["device_tree_launches"][name])}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             row[key] = r.pop(key)

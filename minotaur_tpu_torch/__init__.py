@@ -5,7 +5,7 @@ module paths and public names (`engines.ipm.build_batch_solver`,
 `bnb.step.build_node_step`, `bnb.bnb.BranchAndBound`, ...) so each
 counterpart is easy to find.  It imports torch and numpy and never jax.
 
-Ported so far: the LP/QP branch-and-bound main path (staging, linear
+Ported: the LP/QP branch-and-bound main path (staging, linear
 FBBT, the batched Mehrotra IPM, the node superstep and the
 reliability-branching host loop), with the two TPU kernels of that path
 rewritten as CUDA kernels for Hopper (`ops/spd_inverse.py`,
@@ -15,9 +15,9 @@ pump, the dives and multistart) with its solver entry points; and every
 other option of `mbnb` (the C++ node store in `native/`, checkpoints,
 SOS, the weak brancher, OBBT, the f32 light phase, Gondzio correctors,
 the QPD node processor, the root heuristics) with the sweep harness
-`tools/sweep.py`.  What is left (global, multi-device, the
-device-resident node pool behind `device_tree`) is listed in ROADMAP.md;
-`device_tree` raises NotImplementedError.
+`tools/sweep.py`; the global path (`glob/`), the multi-device layer
+(`parallel/`) and the device-resident node pool behind `device_tree`
+(`bnb/device_pool.py`).  Every module of the JAX package is ported.
 """
 
 from . import utils  # noqa: F401

@@ -12,9 +12,8 @@ Port of minotaur_tpu/bnb/bnb.py.  The host code is the JAX package's, as
 it is; only the device seam changes (`_step`, `_device_consts`,
 `_dispatch_step`/`_fetch_step`, `_qpd_consts`, `_weak_select`'s
 lane-batched FBBT), and the device is named by the caller (`device=`,
-default "cuda").  The one option the port does not have, `device_tree`
-(the JAX package's device-resident node pool, off by default there),
-raises NotImplementedError in the constructor.
+default "cuda").  `device_tree` (off by default) hands the search to the
+device-resident node pool of bnb/device_pool.py after the warm phase.
 """
 
 from __future__ import annotations
@@ -39,18 +38,6 @@ from .step import StepOptions, build_node_step
 from .tree import TreeManager
 
 _INF = float("inf")
-
-# option -> value that leaves the port
-_UNPORTED_OPTIONS = (("device_tree", True),)
-
-
-def _check_unported(opts) -> None:
-    """Raise for options outside the port."""
-    for name, bad in _UNPORTED_OPTIONS:
-        val = opts.get(name)
-        if (bool(val) if bad is True else str(val) == bad):
-            raise NotImplementedError(
-                f"{name}={val}: not yet ported, see ROADMAP.md")
 
 
 @dataclasses.dataclass
@@ -86,7 +73,6 @@ class BranchAndBound:
         self.problem_original = problem
         self.postsolve = None
         opts = self.env.options
-        _check_unported(opts)
         if staged is None and opts.get("presolve_subst"):
             # root substitution/elimination presolve (reference:
             # LinearHandler::substVars_ LinearHandler.cpp:1429 +
@@ -240,6 +226,26 @@ class BranchAndBound:
         # slowest node lane's count anyway).  The old strbr_iter_limit
         # key is honoured as a deprecated alias when the new one is
         # untouched, so configs tuned for the reference keep working.
+        # device-resident multi-round supersteps (bnb/device_pool.py):
+        # eligible only for the certified-bound class on the TRUE staged
+        # model (no auxiliary columns, no nonlinear rows — the in-device
+        # incumbent feasibility test must equal the host's), with the
+        # plain node processor and no SOS branching
+        self._dev_pool = None
+        self._dev_pool_ok = (
+            bool(opts.get("device_tree")) and
+            type(self) is BranchAndBound and
+            self._qpd_step is None and
+            (self._is_lp_relax or self._certified_db) and
+            self.sp.obj_nl is None and not len(self.sp.nl_rows) and
+            self.sp.n == problem.n_vars and
+            bool(self.sp.int_mask.any()) and
+            not problem._sos1 and not problem._sos2 and
+            not opts.get("checkpoint_file") and
+            # exact strong branching needs the host probe superstep
+            str(opts.get("brancher")) != "strong")
+        self._dev_warm_batches = max(1, int(opts.get(
+            "device_warm_batches")))
         self._rel_thresh = max(0, int(opts.get("rel_thresh")))
         _lane_opt = opts.find("strbr_lane_limit")
         if _lane_opt is not None and not _lane_opt.was_set:
@@ -398,6 +404,33 @@ class BranchAndBound:
                 self.status = stop
                 break
             self.tm.set_cutoff(self._cutoff())
+            # hand the tree to the device-resident runner once the warm
+            # phase (root processing, strong-branch pc init, first
+            # incumbents) is done: T B&B rounds then execute per
+            # multiround call instead of one
+            if self._dev_pool_ok and len(self.tm) >= self._batch and \
+                    self.stats.batches >= self._dev_warm_batches and \
+                    (self.ub < _INF or
+                     self.stats.batches >= 4 * self._dev_warm_batches):
+                # the runner keeps its own global bound: nothing may stay
+                # in flight
+                if pending is not None:
+                    self._inflight_nodes = []
+                    next_id = self._finish_batch(pending, next_id)
+                    pending = None
+                if self._dev_pool is None:
+                    from .device_pool import DevicePoolRunner
+                    self._dev_pool = DevicePoolRunner(
+                        self, cap=int(opts.get("device_pool_cap")),
+                        batch=self._batch,
+                        rounds=int(opts.get("device_rounds")))
+                self._dev_pool.run(t0)
+                next_id = max((nd.nid for nd in self.tm.iter_nodes()),
+                              default=next_id - 1) + 1
+                if self.status not in (SolveStatus.STARTED,
+                                       SolveStatus.NOT_STARTED):
+                    break
+                continue
             cur = None
             if len(self.tm):
                 t_d0 = time.monotonic()

@@ -93,25 +93,21 @@ def test_bound_counts_the_batch_in_flight():
     assert len(bab.tm) == 0
 
 
-def test_out_of_slice_options_raise():
-    """`device_tree` (the JAX package's device-resident node pool, off by
-    default there) is the one option the port does not have."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        BranchAndBound(correlated_knapsack(6, 0), _env(device_tree=1),
-                       device="cpu")
-
-
 @pytest.mark.parametrize("opt,val", [("divheur", 1), ("obbt", 1),
                                      ("brancher", "weak"), ("nodeproc", "qpd"),
                                      ("dtype", "f32"), ("persp_ref", 1),
                                      ("msheur", 1),
-                                     ("checkpoint_file", "ckpt.bin")])
+                                     ("checkpoint_file", "ckpt.bin"),
+                                     ("device_tree", 1)])
 def test_ported_option_matches_jax(opt, val, tmp_path):
     """The options that raised before they were ported: each is accepted
     and gives the JAX driver's status and ub (1e-9 relative) and node
     count on correlated_knapsack(6, 0) at node_batch 4, pad_full 1.
-    (tests/test_torch_bnb_options.py, test_torch_native.py and
-    test_torch_qpd.py hold each one on a model where it acts.)"""
+    `device_tree` hands the search to the device pool after one host
+    superstep (pool of 64 slots, 3 rounds a call).
+    (tests/test_torch_bnb_options.py, test_torch_native.py,
+    test_torch_qpd.py and test_torch_device_pool.py hold each one on a
+    model where it acts.)"""
     from minotaur_tpu.bnb.bnb import BranchAndBound as JaxBnB
     from minotaur_tpu.models.generators import correlated_knapsack as jck
     from minotaur_tpu.utils.environment import Environment as JaxEnv
@@ -119,6 +115,9 @@ def test_ported_option_matches_jax(opt, val, tmp_path):
         val = str(tmp_path / val)
     # one padded bucket of 4 lanes: the JAX driver compiles its step once
     opts = dict(node_batch=4, pad_full=1)
+    if opt == "device_tree":
+        opts.update(device_warm_batches=1, device_pool_cap=64,
+                    device_rounds=3)
     pb = BranchAndBound(correlated_knapsack(6, 0),
                         _env(**opts, **{opt: val}), device="cpu")
     jenv = JaxEnv()
@@ -132,6 +131,8 @@ def test_ported_option_matches_jax(opt, val, tmp_path):
     assert abs(pb.ub - opt_v) <= 1e-6 * (1 + abs(opt_v))
     assert abs(pb.ub - jb.ub) <= 1e-9 * (1 + abs(opt_v))
     assert pb.stats.nodes_processed == jb.stats.nodes_processed
+    if opt == "device_tree":
+        assert pb._dev_pool is not None and jb._dev_pool is not None
 
 
 def test_nonlinear_rows_raise():
@@ -139,7 +140,8 @@ def test_nonlinear_rows_raise():
     the QPD node processor and the perspective reformulation on them:
     both are accepted and reach the default run's optimum (the JAX parity
     of each is in tests/test_torch_qpd.py and tests/test_torch_persp.py).
-    What still raises on them is `device_tree`."""
+    `device_tree` declines them (the in-device incumbent test covers
+    linear rows only): the host loop solves to the same optimum."""
     from minotaur_tpu_torch.ir.functions import Function, QuadraticFunction
     p = correlated_knapsack(4, 0)
     p.new_constraint(Function(qf=QuadraticFunction({(0, 0): 1.0})),
@@ -152,7 +154,10 @@ def test_nonlinear_rows_raise():
         assert (bab._qpd_step is not None) == (opt == "nodeproc")
         assert bab.solve() == SolveStatus.SOLVED_OPTIMAL
         assert abs(bab.ub - base.ub) <= 1e-6 * (1 + abs(base.ub))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        BranchAndBound(p, _env(device_tree=1), device="cpu")
+    bab = BranchAndBound(p, _env(device_tree=1), device="cpu")
+    assert not bab._dev_pool_ok
+    assert bab.solve() == SolveStatus.SOLVED_OPTIMAL
+    assert bab._dev_pool is None
+    assert abs(bab.ub - base.ub) <= 1e-6 * (1 + abs(base.ub))
 
 

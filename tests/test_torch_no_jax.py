@@ -3,10 +3,11 @@
 Checked in a fresh interpreter (this test process has jax loaded by
 conftest): import every module of minotaur_tpu_torch (the NL path, the
 readers, the QG/OA path, the global path, the solver CLIs, the node
-store, QPD, the sweep and the multi-device layer included), then look at
-sys.modules.  The port keeps its own copies of the JAX package's
-numpy-only modules; those copied as they are must stay byte-equal to
-the JAX package's file.
+store, QPD, the sweep, the multi-device layer and the device-resident
+node pool included), then look at sys.modules.  The port keeps its own
+copies of the JAX package's numpy-only modules; those copied as they
+are must stay byte-equal to the JAX package's file (utils/environment.py
+but for two help strings).
 """
 
 import os
@@ -44,7 +45,8 @@ for name in ("ops.stage", "ops.interval", "engines.staging", "convert",
              "glob", "glob.transformer", "glob.univariate", "glob.rlt",
              "glob.glob_step", "glob.glob_bnb", "solvers.mglob",
              "parallel", "parallel.pool", "parallel.dist_bnb",
-             "parallel.multihost", "solvers.mqgdist", "solvers.mqgmpi"):
+             "parallel.multihost", "solvers.mqgdist", "solvers.mqgmpi",
+             "bnb.device_pool"):
     assert "minotaur_tpu_torch." + name in names, name
 assert not bad, bad
 """
@@ -71,7 +73,7 @@ def test_no_set_default_dtype():
 # modules the port copies byte for byte from the JAX package
 VERBATIM = (
     "utils/__init__.py", "utils/types.py", "utils/options.py",
-    "utils/logger.py", "utils/timer.py", "utils/environment.py",
+    "utils/logger.py", "utils/timer.py",
     "ir/expr.py", "ir/functions.py", "ir/problem.py", "ops/opcodes.py",
     "bnb/node.py", "bnb/solpool.py", "bnb/nlpres.py",
     "bnb/bin2lin.py", "bnb/cuts.py", "bnb/persp.py", "bnb/checkpoint.py",
@@ -88,3 +90,53 @@ def test_verbatim_copies(rel):
         ref = fh.read()
     with open(os.path.join(ROOT, "minotaur_tpu_torch", rel), "rb") as fh:
         assert fh.read() == ref, rel
+
+
+# options whose help strings the port rewrites (they quoted TPU figures)
+PORT_HELP = ("ipm_use_pallas", "device_tree")
+
+
+def _help_spans(src):
+    """Source of `src` with the help argument of each PORT_HELP option's
+    `ins(...)` call cut out."""
+    import ast
+    cuts = []
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Call) and getattr(node.func, "id", "") == \
+                "ins" and isinstance(node.args[0], ast.Constant) and \
+                node.args[0].value in PORT_HELP:
+            help_arg = node.args[2]
+            cuts.append((help_arg.lineno, help_arg.col_offset,
+                         help_arg.end_lineno, help_arg.end_col_offset))
+    assert len(cuts) == len(PORT_HELP)
+    lines = src.splitlines(keepends=True)
+    offset = [0]
+    for line in lines:
+        offset.append(offset[-1] + len(line.encode()))
+    data = src.encode()
+    out, pos = b"", 0
+    for l0, c0, l1, c1 in sorted(cuts):
+        out += data[pos:offset[l0 - 1] + c0] + b"<help>"
+        pos = offset[l1 - 1] + c1
+    return out + data[pos:]
+
+
+def test_environment_copy_differs_only_in_help():
+    """utils/environment.py is the JAX package's file but for the help
+    strings of `ipm_use_pallas` and `device_tree`, which the port words
+    without TPU figures; the option tables are equal by name, type and
+    default."""
+    from minotaur_tpu.utils.environment import Environment as JaxEnv
+    from minotaur_tpu_torch.utils.environment import Environment
+    rel = "utils/environment.py"
+    with open(os.path.join(ROOT, "minotaur_tpu", rel)) as fh:
+        ref = fh.read()
+    with open(os.path.join(ROOT, "minotaur_tpu_torch", rel)) as fh:
+        port = fh.read()
+    assert _help_spans(port) == _help_spans(ref)
+    table = lambda env: [(o.name, o.otype, o.default)  # noqa: E731
+                         for o in env.options]
+    assert table(Environment()) == table(JaxEnv())
+    helps = {o.name: o.help for o in Environment().options}
+    for name in PORT_HELP:
+        assert "v5e" not in helps[name] and "PERF.md" in helps[name]
