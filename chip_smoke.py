@@ -73,7 +73,16 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
      at node_batch 16 under the pool at 256 slots and at 64 slots
      (4 x node_batch, the least the runner takes), both sound, the
      64-slot pool spilling to the host tree, with status, nodes and
-     whether each closed at the DP optimum.
+     whether each closed at the DP optimum;
+ 13. the port's bench entry (`minotaur_tpu_torch/bench.py`):
+     `bench.run` on intquad(300) at the bench settings, capped at phase
+     6's node count and 180 s, its one-line dict with `bench.py`'s four
+     keys, sound against the oracle, with K1 and K2 launched in the timed
+     solve;
+ 14. the example gallery (`minotaur_tpu_torch/examples/`): every script
+     on the card at the arguments and under the assertions of its CPU
+     test, the .nl scripts on batchdes_a written by the port's
+     nl_writer, with each script's wall seconds.
 
 Every phase prints one line; any failed check raises and the process
 exits non-zero without the final line.  The next-to-last line is the
@@ -114,9 +123,10 @@ CKPT = dict(node_cap=320, time_cap=10.0)
 # lanes (full width: 1378 columns, 5113 rows a lane), its search capped
 # at time_cap seconds (10b); bilinear_pooling(pairs, 0) capped at
 # pool_cap; mglob on qknap(cli_n) (10c); obbt 1 on qknap(obbt_n) capped
-# at obbt_cap (10d)
-GLOB = dict(n=100, density=0.25, seed=0, B=64, time_cap=60.0, pairs=64,
-            pool_cap=30.0, cli_n=16, obbt_n=24, obbt_cap=15.0)
+# at obbt_cap (10d); the searches' caps are short so that all fourteen
+# phases fit in the script's 1200 s
+GLOB = dict(n=100, density=0.25, seed=0, B=64, time_cap=30.0, pairs=64,
+            pool_cap=15.0, cli_n=16, obbt_n=24, obbt_cap=15.0)
 # phase 11: the multi-device layer on one card: `parts` partitions of
 # B / parts lanes; 11b runs DistQGBranchAndBound on normcon(n, seed)
 # capped at node_cap nodes and time_cap seconds; 11d runs `mqgmpi --spawn
@@ -2104,6 +2114,167 @@ def phase_device_tree(record):
         device_pool.DevicePoolRunner.run = run
 
 
+def phase_bench(record):
+    """13: the port's bench entry (`minotaur_tpu_torch/bench.py`) at
+    phase 6's node cap: the four-key line, sound, K1 and K2 launched."""
+    from minotaur_tpu_torch import bench
+    res = bench.run(node_limit=MAIN_NODE_CAP, time_limit=180.0,
+                    device=DEVICE)
+    line = res["line"]
+    check(tuple(line) == bench.LINE_KEYS, f"bench line keys {tuple(line)}")
+    check(line["metric"] == "bnb_nodes_per_sec" and
+          line["unit"] == "nodes/s" and line["value"] > 0,
+          f"bench line {line}")
+    opt = res["optimum"]
+    tol = bench.SOUND_RTOL * (1 + abs(opt))
+    check(res["lb"] <= opt + tol and opt <= res["ub"] + tol,
+          f"bench unsound: lb {res['lb']} opt {opt} ub {res['ub']}")
+    for name, cnt in res["launches"].items():
+        check(cnt > 0, f"kernel {name} was not launched by the bench run")
+    record["bench_launches"] = res["launches"]
+    say(f"[13] bench.run intquad{bench.INTQUAD} B={bench.NODE_BATCH} (cap "
+        f"{MAIN_NODE_CAP} nodes, 180 s): {json.dumps(line)}; status "
+        f"{res['status'].name}, stopped by {res['stopped_by']}; lb "
+        f"{res['lb']:.10g} opt {opt:.10g} ub {res['ub']:.10g}; nodes "
+        f"{res['nodes']} in {res['seconds']:.2f} s; KKT factorizations/s "
+        f"{res['ipm_iters'] / res['seconds']:.1f}; launches in the timed "
+        f"solve {res['launches']}; card {res['card']}")
+
+
+def phase_examples(record):
+    """14: every script of the port's gallery on the card, at the
+    arguments and under the assertions of its CPU test
+    (tests/test_torch_examples_*.py); the .nl scripts read batchdes_a
+    written by the port's nl_writer."""
+    import contextlib
+    import importlib
+    import numpy as np
+    from scipy.optimize import minimize
+    from minotaur_tpu_torch.engines.ipm import build_batch_solver
+    from minotaur_tpu_torch.io.nl_reader import read_nl
+    from minotaur_tpu_torch.io.nl_writer import write_nl
+    from minotaur_tpu_torch.models.convex_suite import (
+        batchdes_like, batchdes_like_optimum)
+    from minotaur_tpu_torch.utils.types import SolveStatus
+
+    ok = SolveStatus.SOLVED_OPTIMAL
+    opt = batchdes_like_optimum()
+    mod = lambda name: importlib.import_module(  # noqa: E731
+        "minotaur_tpu_torch.examples." + name)
+
+    def knapsack_best():
+        p, w, cap = mod("knapsack_qp").build()
+        xs = (np.arange(2 ** len(w))[:, None] >> np.arange(len(w))) & 1
+        return min(p.eval_objective(x.astype(float)) for x in xs
+                   if w @ x <= cap)
+
+    def relaxation(path):
+        p = read_nl(path)
+        lo, hi = p.var_bounds()
+        g = lambda x: p.eval_constraints(x)  # noqa: E731
+        clb = np.array([c.lb for c in p.cons])
+        cub = np.array([c.ub for c in p.cons])
+        lk, uk = np.isfinite(clb), np.isfinite(cub)
+        cons = [dict(type="ineq", fun=lambda x: (g(x) - clb)[lk]),
+                dict(type="ineq", fun=lambda x: (cub - g(x))[uk])]
+        r = minimize(p.eval_objective, 0.5 * (lo + hi), method="SLSQP",
+                     bounds=list(zip(lo, hi)),
+                     constraints=[c for c, k in zip(cons, (lk, uk))
+                                  if k.any()],
+                     options=dict(ftol=1e-14, maxiter=500))
+        check(r.success, f"SLSQP: {r.message}")
+        return float(r.fun)
+
+    def benders_best():
+        m = mod("benders_demo")
+        sub = m._build_sub()
+        solve = build_batch_solver(sub, device=DEVICE)
+        best = np.inf
+        for mask in range(2 ** len(m.F_COST)):
+            yy = np.array([(mask >> i) & 1 for i in range(len(m.F_COST))],
+                          float)
+            tot = float(m.F_COST @ yy)
+            for s in range(len(m.PROBS)):
+                r = solve(sub.A, np.concatenate([m.DEMANDS[s], -m.CAP * yy]),
+                          sub.cub, sub.vlb[None, :], sub.vub[None, :])
+                tot += float(m.PROBS[s]) * float(r.obj[0])
+            best = min(best, tot)
+        return best
+
+    with tempfile.TemporaryDirectory() as tmp:
+        nl = os.path.join(tmp, "batchdes_a.nl")
+        write_nl(batchdes_like(), nl)
+        cuda = dict(device=DEVICE)
+        relax = relaxation(nl)
+        # (script, arguments, check of its result)
+        cases = (
+            ("simple_bnb", dict(node_batch=4, log_level=1, **cuda),
+             lambda b: b.ub < 1e19 and b.best_x is not None),
+            ("knapsack_qp", cuda, lambda b: b.status == ok and
+             abs(b.ub - knapsack_best()) <= 1e-6),
+            ("root_relaxation", dict(path=nl, log=False, **cuda),
+             lambda r: abs(r[0] - relax) <= 1e-6 and r[1] >= r[0] - 1e-7),
+            ("batched_engine", dict(path=nl, batch=4, **cuda),
+             lambda r: np.asarray(r.status).shape == (4,) and
+             abs(float(r.obj[0]) - relax) <= 1e-6),
+            ("custom_brancher", dict(node_batch=8, log=False, **cuda),
+             lambda r: set(r) == {"maxvio", "lexico", "random"} and
+             np.ptp([ub for ub, _ in r.values()]) < 1e-5),
+            ("reliability_branching_demo", dict(log=False, **cuda),
+             lambda r: r[0] == ok and r[2] > 0),
+            ("checkpoint_resume", dict(path=nl, log_level=1, **cuda),
+             lambda b: abs(b.ub - opt) <= 1e-4),
+            ("solve_nl", dict(path=nl, **cuda),
+             lambda b: b.status == ok and
+             abs(b.ub - opt) <= 1e-6 * (1 + abs(opt)) and
+             b.lb <= opt + 1e-6 * (1 + abs(opt))),
+            ("nl_roundtrip", dict(path=nl), lambda p: p.n_vars > 0),
+            ("expr_dag_demo", dict(log=False, **cuda),
+             lambda r: abs(r[0] - (np.exp(0.5) + 2.0)) <= 1e-10 and
+             abs(r[1][2] - 0.5) <= 1e-10),
+            ("polynomial_demo", {}, lambda p: p.degree() == 3),
+            ("quad_socp", dict(node_batch=4, log=False, **cuda),
+             lambda b: abs(b.ub + 4.0) <= 1e-5),
+            ("qpd_processor_demo", dict(path=nl, log=False, **cuda),
+             lambda r: r[0] == ok and abs(r[1] - opt) < 1e-4 and r[2] > 0),
+            ("qpdive_demo", dict(log=False, **cuda),
+             lambda c: bool(c) and np.isfinite(c[0][1])),
+            ("simple_qg", dict(node_batch=4, log_level=1, **cuda),
+             lambda b: b.ub < 1e19),
+            ("outer_approx", dict(node_batch=4, log_level=1, **cuda),
+             lambda b: abs(b.ub - 0.25) <= 1e-5),
+            ("multistart_demo", dict(log_level=1, **cuda),
+             lambda b: b.ub <= -0.95),
+            ("benders_demo", dict(log=False, **cuda),
+             lambda r: abs(r[1] - benders_best()) <= 1e-5 * abs(r[1])),
+            ("water_network", dict(log=False, **cuda),
+             lambda b: b.lb <= -400.0 + 1e-4 and abs(b.ub + 400.0) <= 1e-3),
+            ("simple_glob", dict(node_batch=4, log_level=1, **cuda),
+             lambda b: abs(b.ub + 4.0) <= 1e-4),
+            ("bilinear_demo", dict(node_batch=8, log=False, **cuda),
+             lambda b: b.ub < 1e19 and b.lb <= b.ub + 1e-6),
+            ("multilinear_demo", dict(node_batch=4, log_level=1, **cuda),
+             lambda b: b.ub < 1e19),
+            ("rlt_demo", dict(log=False, **cuda),
+             lambda o: o[(12, 1)][1] > o[(0, 1)][1] + 0.5 and
+             o[(12, 30)][1] >= o[(0, 30)][1] - 1e-6),
+        )
+        seconds = {}
+        for name, kw, holds in cases:
+            t0 = time.monotonic()
+            # the scripts print their results: keep them off this stdout
+            with contextlib.redirect_stdout(sys.stderr):
+                out = mod(name).main(**kw)
+            seconds[name] = round(time.monotonic() - t0, 2)
+            check(holds(out), f"example {name}: its assertions fail")
+            say(f"[14] example {name} on {kw.get('device', 'the host')}: "
+                f"assertions hold, {seconds[name]:.2f} s")
+    gallery = [f for f in os.listdir(os.path.dirname(mod("simple_bnb").__file__))
+               if f.endswith(".py") and f != "__init__.py"]
+    check(len(seconds) == len(gallery), "an example of the gallery was not run")
+    say(f"[14] {len(seconds)} examples, {sum(seconds.values()):.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "minotaur_tpu_torch")):
         print("chip_smoke: minotaur_tpu_torch not found next to this "
@@ -2125,7 +2296,7 @@ def main() -> int:
                   phase_ckpt_sos_weak, phase_glob_step, phase_glob_full,
                   phase_glob_cli, phase_glob_obbt, phase_dist_step,
                   phase_dist_qg, phase_dist_kernels, phase_dist_cli,
-                  phase_device_tree):
+                  phase_device_tree, phase_bench, phase_examples):
         t0 = time.monotonic()
         phase(record)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)
@@ -2152,7 +2323,8 @@ def main() -> int:
                    record["glob_obbt_launches"][name]),
                "dist_launches": int(record["dist_launches"][name]),
                "device_tree_launches": int(
-                   record["device_tree_launches"][name])}
+                   record["device_tree_launches"][name]),
+               "bench_launches": int(record["bench_launches"][name])}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             row[key] = r.pop(key)

@@ -4,7 +4,8 @@ Checked in a fresh interpreter (this test process has jax loaded by
 conftest): import every module of minotaur_tpu_torch (the NL path, the
 readers, the QG/OA path, the global path, the solver CLIs, the node
 store, QPD, the sweep, the multi-device layer and the device-resident
-node pool included), then look at sys.modules.  The port keeps its own
+node pool, the bench entry and the example gallery included), then look
+at sys.modules.  The port keeps its own
 copies of the JAX package's numpy-only modules; those copied as they
 are must stay byte-equal to the JAX package's file (utils/environment.py
 but for two help strings).
@@ -46,8 +47,17 @@ for name in ("ops.stage", "ops.interval", "engines.staging", "convert",
              "glob.glob_step", "glob.glob_bnb", "solvers.mglob",
              "parallel", "parallel.pool", "parallel.dist_bnb",
              "parallel.multihost", "solvers.mqgdist", "solvers.mqgmpi",
-             "bnb.device_pool"):
+             "bnb.device_pool", "bench", "examples") + tuple(
+                 "examples." + f[:-3] for f in sorted(os.listdir(
+                     os.path.join(minotaur_tpu_torch.__path__[0],
+                                  "examples")))
+                 if f.endswith(".py") and f != "__init__.py"):
     assert "minotaur_tpu_torch." + name in names, name
+# the gallery has one script per example of the JAX package's examples/
+gallery = lambda d: sorted(f for f in os.listdir(d)  # noqa: E731
+                           if f.endswith(".py") and f != "__init__.py")
+assert gallery(os.path.join({root!r}, "examples")) == gallery(
+    os.path.join(minotaur_tpu_torch.__path__[0], "examples"))
 assert not bad, bad
 """
 
