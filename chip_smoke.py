@@ -81,8 +81,21 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
      solve;
  14. the example gallery (`minotaur_tpu_torch/examples/`): every script
      on the card at the arguments and under the assertions of its CPU
-     test, the .nl scripts on batchdes_a written by the port's
-     nl_writer, with each script's wall seconds.
+     test (bilinear_demo at node_batch BILINEAR_BATCH), the .nl scripts
+     on batchdes_a written by the port's nl_writer, with each script's
+     wall seconds;
+ 15. the ports of the root tools: (a) `tools/run_sweep.py` with mbnb,
+     mqg and moa on three suite rows written as .nl files with a
+     solutions CSV, every row sound and within 1e-5 of its optimum; (b)
+     `tools/ab_qpd.py` on its stand-in for nvs08 (QPD verifies lanes on
+     the true model) and on qknap12 (QPD inactive), pcb and qpd at the
+     same optimum; (c) `tools/dist_sweep.py` at P = 1, 2 and 4 on
+     correlated_knapsack(30, 1) at the DP optimum, per-partition counts
+     summing to the total, with each P's seconds a superstep; (d)
+     `graft_entry.entry()` run once and `dryrun_multichip(card count)`;
+     K1 and K2 launched in (a)-(d); (e) the three microbenchmarks
+     (`tools/microbench_{inv,tailops,calib}.py`), K1 launched by the
+     inverse's.
 
 Every phase prints one line; any failed check raises and the process
 exits non-zero without the final line.  The next-to-last line is the
@@ -105,11 +118,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 # phase 7: normcon(n, seed) at B lanes (SUITE["normcon_1024a"]), its full
 # search capped at node_cap nodes and time_cap seconds
-NL = dict(n=1024, seed=7, B=64, node_cap=64, time_cap=150.0)
+NL = dict(n=1024, seed=7, B=64, node_cap=32, time_cap=150.0)
 NL_ROWS = ("normcon_20a", "expbudget_8a", "ex1223_a", "batchdes_a")
 # phase 8: QGBranchAndBound on normcon(n, seed) at B lanes (the sweep's
 # mqg row normcon_1024a), capped at node_cap nodes and time_cap seconds
-QG = dict(n=1024, seed=7, B=64, node_cap=32, time_cap=180.0)
+QG = dict(n=1024, seed=7, B=64, node_cap=16, time_cap=180.0)
 # phase 9a: the main-path model under dtype f32 with Gondzio correctors
 # and OBBT (whose linear view of intquad is one row: K1 at (2n, 1, 1))
 F32_PATH = dict(n=300, node_cap=8192, time_cap=10.0, obbt_k=1,
@@ -123,10 +136,10 @@ CKPT = dict(node_cap=320, time_cap=10.0)
 # lanes (full width: 1378 columns, 5113 rows a lane), its search capped
 # at time_cap seconds (10b); bilinear_pooling(pairs, 0) capped at
 # pool_cap; mglob on qknap(cli_n) (10c); obbt 1 on qknap(obbt_n) capped
-# at obbt_cap (10d); the searches' caps are short so that all fourteen
+# at obbt_cap (10d); the searches' caps are short so that all fifteen
 # phases fit in the script's 1200 s
-GLOB = dict(n=100, density=0.25, seed=0, B=64, time_cap=30.0, pairs=64,
-            pool_cap=15.0, cli_n=16, obbt_n=24, obbt_cap=15.0)
+GLOB = dict(n=100, density=0.25, seed=0, B=64, time_cap=20.0, pairs=64,
+            pool_cap=10.0, cli_n=16, obbt_n=24, obbt_cap=15.0)
 # phase 11: the multi-device layer on one card: `parts` partitions of
 # B / parts lanes; 11b runs DistQGBranchAndBound on normcon(n, seed)
 # capped at node_cap nodes and time_cap seconds; 11d runs `mqgmpi --spawn
@@ -143,6 +156,17 @@ MAIN_NODE_CAP = 1024
 # knap_caps slots, each capped at knap_time seconds
 POOL = dict(cap=4096, rounds=8, warm=4, knap=(30, 1), knap_batch=16,
             knap_caps=(256, 64), knap_time=90.0)
+# phase 15: the root tools' ports: run_sweep with each solver on
+# sweep_rows (suite rows written as .nl), ab_qpd on its stand-in and
+# qknap12, dist_sweep on correlated_knapsack(*knap) at P = 1 .. max_parts
+# at node_batch lanes (the tool's default is 32: 122 s for the three P on
+# an NVIDIA H100 80GB HBM3 at 700 W, 96 s at 64)
+TOOLS = dict(sweep_rows=("st_e14a", "batchdes_a", "ex1223_a"),
+             sweep_time=60.0, knap=(30, 1), max_parts=4, node_batch=128)
+# phase 14: bilinear_demo's node batch (its test's 8 took 182 s on an
+# NVIDIA H100 80GB HBM3 at 700 W and 64 took 69 s: the supersteps' host
+# dispatch)
+BILINEAR_BATCH = 128
 # the bench's IPM settings (bench.py:78-95) as driver options
 BENCH_OPTIONS = (("node_batch", 64), ("pad_full", 1), ("ipm_max_iters", 28),
                  ("ipm_tail_kkt_rounds", 4), ("ipm_refine_steps", 0),
@@ -2144,8 +2168,9 @@ def phase_bench(record):
 def phase_examples(record):
     """14: every script of the port's gallery on the card, at the
     arguments and under the assertions of its CPU test
-    (tests/test_torch_examples_*.py); the .nl scripts read batchdes_a
-    written by the port's nl_writer."""
+    (tests/test_torch_examples_*.py; bilinear_demo at node_batch
+    BILINEAR_BATCH); the .nl scripts read batchdes_a written by the
+    port's nl_writer."""
     import contextlib
     import importlib
     import numpy as np
@@ -2251,7 +2276,8 @@ def phase_examples(record):
              lambda b: b.lb <= -400.0 + 1e-4 and abs(b.ub + 400.0) <= 1e-3),
             ("simple_glob", dict(node_batch=4, log_level=1, **cuda),
              lambda b: abs(b.ub + 4.0) <= 1e-4),
-            ("bilinear_demo", dict(node_batch=8, log=False, **cuda),
+            ("bilinear_demo", dict(node_batch=BILINEAR_BATCH, log=False,
+                                   **cuda),
              lambda b: b.ub < 1e19 and b.lb <= b.ub + 1e-6),
             ("multilinear_demo", dict(node_batch=4, log_level=1, **cuda),
              lambda b: b.ub < 1e19),
@@ -2275,6 +2301,178 @@ def phase_examples(record):
     say(f"[14] {len(seconds)} examples, {sum(seconds.values()):.1f} s")
 
 
+def phase_tools(record):
+    """15a-d: the ports of the root tools on the card, every kernel of
+    the path launched: run_sweep (mbnb, mqg, moa) on three suite rows
+    against their oracles, ab_qpd on its stand-in and qknap12, dist_sweep
+    at P = 1, 2, 4 on correlated_knapsack(30, 1), and graft_entry's entry
+    and dry run."""
+    import csv
+
+    import numpy as np
+    from minotaur_tpu_torch import device as mdev
+    from minotaur_tpu_torch import graft_entry
+    from minotaur_tpu_torch.io.nl_writer import write_nl
+    from minotaur_tpu_torch.models.convex_suite import SUITE
+    from minotaur_tpu_torch.models.generators import (correlated_knapsack,
+                                                      knapsack_dp_optimum,
+                                                      quadratic_knapsack)
+    from minotaur_tpu_torch.tools import ab_qpd, dist_sweep, run_sweep
+
+    mdev.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 15a: the .nl sweep, each solver over the three rows
+        known = {name: float(SUITE[name][1]()) for name in TOOLS["sweep_rows"]}
+        nl_dir = os.path.join(tmp, "nl")
+        os.makedirs(nl_dir)
+        for name in known:
+            write_nl(SUITE[name][0](), os.path.join(nl_dir, name + ".nl"))
+        sol = os.path.join(tmp, "known.csv")
+        with open(sol, "w") as fh:
+            fh.writelines(f"{k},{v!r}\n" for k, v in known.items())
+        parts = []
+        for solver in sorted(run_sweep.SOLVERS):
+            out = os.path.join(tmp, solver + ".csv")
+            t0 = time.monotonic()
+            with tool_output_to_stderr():
+                rc = run_sweep.main([nl_dir, "--solver", solver, "--time",
+                                     str(TOOLS["sweep_time"]), "--out", out,
+                                     "--solutions", sol, "--device",
+                                     DEVICE])
+            dt = time.monotonic() - t0
+            check(rc == 0, f"15a run_sweep --solver {solver} exited {rc}")
+            with open(out) as fh:
+                rows = list(csv.reader(fh))
+            check(tuple(rows[0]) == run_sweep.COLUMNS,
+                  f"15a columns {rows[0]}")
+            check(sorted(r[0] for r in rows[1:]) == sorted(known),
+                  f"15a rows {rows[1:]}")
+            cells = []
+            for name, status, ub, lb, _, nodes, wall, dev in rows[1:]:
+                opt, ub, lb = known[name], float(ub), float(lb)
+                tol = 1e-6 * (1 + abs(opt))
+                check(lb <= opt + tol and opt <= ub + tol,
+                      f"15a {solver} {name} unsound: lb {lb} opt {opt} "
+                      f"ub {ub}")
+                check(abs(float(dev)) <= 1e-5 * max(1.0, abs(opt)),
+                      f"15a {solver} {name}: dev_from_known {dev}")
+                cells.append(f"{name} {status} ub {ub:.10g} nodes {nodes} "
+                             f"{wall} s")
+            parts.append(f"{solver} ({dt:.1f} s): " + ", ".join(cells))
+        say("[15a] run_sweep on the card, every row sound and within 1e-5 "
+            "of its optimum: " + "; ".join(parts))
+
+        # 15b: the QPD A/B on its stand-in (QPD active) and on qknap12
+        stand_in = ab_qpd.cases()
+        name = next(iter(stand_in))
+        lines = []
+        for label, mk, active in ((name, stand_in[name], True), (
+                "qknap12", lambda: quadratic_knapsack(12, density=0.4,
+                                                      seed=3), False)):
+            r = {proc: ab_qpd.run(mk, proc, device=DEVICE)
+                 for proc in ab_qpd.PROCS}
+            for proc, x in r.items():
+                check(x["status"] == "SOLVED_OPTIMAL",
+                      f"15b {label} {proc}: {x}")
+            check(abs(r["pcb"]["ub"] - r["qpd"]["ub"]) <=
+                  1e-6 * (1 + abs(r["pcb"]["ub"])),
+                  f"15b {label}: pcb {r['pcb']} vs qpd {r['qpd']}")
+            check((r["qpd"]["qpd_verified"] > 0) == active,
+                  f"15b {label}: qpd verified {r['qpd']['qpd_verified']}")
+            lines.append(f"{label}: " + ", ".join(
+                f"{proc} {x['status']} nodes {x['nodes']} {x['wall']} s "
+                f"ub {x['ub']} verified {x['qpd_verified']}"
+                for proc, x in r.items()))
+        say("[15b] ab_qpd: " + "; ".join(lines))
+
+        # 15c: the partition-count sweep on one card
+        knap = TOOLS["knap"]
+        dp = knapsack_dp_optimum(*knap)
+        path = os.path.join(tmp, "cknap30.nl")
+        write_nl(correlated_knapsack(*knap), path)
+        devices = dist_sweep.default_devices(DEVICE)
+        with tool_output_to_stderr():
+            rows = dist_sweep.sweep([path], devices, TOOLS["max_parts"],
+                                    node_batch=TOOLS["node_batch"])
+        check([r["parts"] for r in rows] ==
+              dist_sweep.part_counts(TOOLS["max_parts"]),
+              f"15c partition counts {[r['parts'] for r in rows]}")
+        for r in rows:
+            check(r["status"] == "SOLVED_OPTIMAL" and
+                  abs(r["ub"] - dp) <= 1e-6 * (1 + abs(dp)),
+                  f"15c P={r['parts']}: {r['status']} ub {r['ub']} DP {dp}")
+            per = [int(c) for c in r["per_part_nodes"].split("|")]
+            check(sum(per) == r["nodes"],
+                  f"15c P={r['parts']}: partitions {per} vs {r['nodes']}")
+        record["dist_sweep"] = rows
+        say(f"[15c] dist_sweep correlated_knapsack{knap} node_batch "
+            f"{TOOLS['node_batch']} on {devices} (DP {dp:.10g}): " +
+            "; ".join(
+                f"P={r['parts']} {r['status']} nodes {r['nodes']} in "
+                f"{r['wall_s']} s = {r['nodes_per_s']} nodes/s, "
+                f"{r['supersteps']} supersteps = "
+                f"{r['wall_s'] / max(1, r['supersteps']):.3f} s a superstep, "
+                f"rebalances {r['rebalances']}, migrated {r['migrated']}, "
+                f"per partition {r['per_part_nodes']}" for r in rows))
+
+    # 15d: graft_entry: the superstep once, then the dry run
+    fn, args = graft_entry.entry(DEVICE)
+    t0 = time.monotonic()
+    out = fn(*args)
+    objs = out.obj.cpu().numpy()
+    dt = time.monotonic() - t0
+    check(out.status.cpu().tolist() == [1] * 8 and np.isfinite(objs).all(),
+          f"15d entry: statuses {out.status.tolist()} objs {objs}")
+    say(f"[15d] graft_entry.entry(): 8 lanes OPTIMAL in {dt:.2f} s, obj "
+        f"{np.round(objs, 4).tolist()}")
+    t0 = time.monotonic()
+    n_dev = len(devices)                # torch.cuda.device_count()
+    with tool_output_to_stderr():
+        graft_entry.dryrun_multichip(n_dev, DEVICE)
+    say(f"[15d] graft_entry.dryrun_multichip({n_dev}) passed its checks "
+        f"in {time.monotonic() - t0:.1f} s (its lines on stderr)")
+    counts = mdev.launch_counts()
+    for name, cnt in counts.items():
+        check(cnt > 0, f"kernel {name} was not launched by phase 15")
+    record["tools_launches"] = counts
+    say(f"[15] launches in 15a-d: {counts}")
+
+
+def phase_microbench(record):
+    """15e: the three op-cost microbenchmarks (K1 launched by
+    microbench_inv, outside the counts of the path's run)."""
+    from minotaur_tpu_torch.tools import (microbench_calib, microbench_inv,
+                                          microbench_tailops)
+    from minotaur_tpu_torch.device import resolve_device
+    from minotaur_tpu_torch.tools.timing import card_clocks
+    dev = resolve_device(DEVICE)
+    t0 = time.monotonic()
+    say(f"[15e] clocks before: {card_clocks(dev)}")
+    out = {}
+    for name, mod in (("inv", microbench_inv), ("tailops", microbench_tailops),
+                      ("calib", microbench_calib)):
+        out[name] = mod.run(device=DEVICE)
+    say(f"[15e] clocks after: {card_clocks(dev)}")
+    for r in out["inv"]:
+        say(f"[15e] inv ({r['B']},{r['n']},{r['n']}) {r['dtype']} "
+            f"{r['name']}: {r['ms']:.4f} ms, |residual| {r['residual']:.3g}"
+            + (f", launches {r['launches']}" if "launches" in r else ""))
+    for key in ("tailops", "calib"):
+        for r in out[key]:
+            val = (f"{r['ms']:.5f} ms ({r['clock']})" +
+                   (f" {r['tflops']:.2f} TFLOP/s" if "tflops" in r else "")
+                   if "ms" in r else f"{r['rel_err']:.3g}")
+            say(f"[15e] {key} {r['name']}: {val}")
+    record["microbench"] = out
+    say(f"[15e] microbenchmarks in {time.monotonic() - t0:.1f} s")
+
+
+def tool_output_to_stderr():
+    """The tools print their tables: keep them off this stdout."""
+    import contextlib
+    return contextlib.redirect_stdout(sys.stderr)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "minotaur_tpu_torch")):
         print("chip_smoke: minotaur_tpu_torch not found next to this "
@@ -2296,7 +2494,8 @@ def main() -> int:
                   phase_ckpt_sos_weak, phase_glob_step, phase_glob_full,
                   phase_glob_cli, phase_glob_obbt, phase_dist_step,
                   phase_dist_qg, phase_dist_kernels, phase_dist_cli,
-                  phase_device_tree, phase_bench, phase_examples):
+                  phase_device_tree, phase_bench, phase_examples,
+                  phase_tools, phase_microbench):
         t0 = time.monotonic()
         phase(record)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)
@@ -2324,7 +2523,8 @@ def main() -> int:
                "dist_launches": int(record["dist_launches"][name]),
                "device_tree_launches": int(
                    record["device_tree_launches"][name]),
-               "bench_launches": int(record["bench_launches"][name])}
+               "bench_launches": int(record["bench_launches"][name]),
+               "tools_launches": int(record["tools_launches"][name])}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             row[key] = r.pop(key)

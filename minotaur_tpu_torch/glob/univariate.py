@@ -143,6 +143,12 @@ SUPPORTED_UNI_OPS = frozenset(
     if op not in (Op.POWK, Op.CPOW) and term_meta(int(op), 0.0)["ok"])
 
 
+# log and log10 of the smallest positive double (5e-324): the least value
+# either takes on a double, the lower end of their range on [lo, hi] when
+# lo < 1e-300 (the JAX package's range stops at the clamp, 1e-300)
+LOG_FLOOR = {Op.LOG: math.log(5e-324), Op.LOG10: math.log10(5e-324)}
+
+
 # ------------------------------------------------------------------ numpy
 def uni_eval_np(op: int, x: float, k: float) -> float:
     o = Op(op)
@@ -394,6 +400,11 @@ def make_uni_fns(codes: np.ndarray, ks: np.ndarray, device="cpu"):
     sin_shift = np.asarray([math.pi / 2 if Op(int(c)) is Op.COS else 0.0
                             for c in codes])
     tan_like = np.asarray([Op(int(c)) is Op.TAN for c in codes], dtype=bool)
+    # LOG and LOG10 at the smallest positive double: below fval's clamp
+    # of x at 1e-300 they keep falling to these values
+    log_floor = np.asarray([LOG_FLOOR.get(Op(int(c)), -_INF) for c in codes])
+    log_t = torch.as_tensor(np.isfinite(log_floor), device=dev)
+    log_floor_t = torch.as_tensor(log_floor, **f64)
     sin_t = torch.as_tensor(sin_like, device=dev)
     shf_t = torch.as_tensor(sin_shift, **f64)
     tan_t = torch.as_tensor(tan_like, device=dev)
@@ -403,6 +414,7 @@ def make_uni_fns(codes: np.ndarray, ks: np.ndarray, device="cpu"):
         fhi = fval(hi)
         rlo = torch.minimum(flo, fhi)
         rhi = torch.maximum(flo, fhi)
+        rlo = torch.where(log_t & (lo < 1e-300), log_floor_t, rlo)
         spans = (lo <= 0.0) & (hi >= 0.0)
         # even (incl. 1/x^even): min at 0 or +inf at the pole
         f0 = fval(torch.zeros_like(lo))

@@ -7,6 +7,13 @@
   variable and direction and the summary's counts, within
   1e-6 * (1 + |v|) on every float64 field (tests/test_torch_step.py's
   tolerance).
+- The same call under the default mixed policy (f32 factors, which the
+  two packages round differently): the same kinds of outcome per slot
+  (occupancy, depth, branching variable and direction) and the same
+  counts of processed, created and pruned nodes, and certified bounds
+  that are sound against the enumerated optimum of each slot's box (the
+  knapsack's 2^12 points; the best of them is the DP optimum), as
+  chip_smoke phase 10a holds the glob step under that policy.
 - Slot selection breaks ties by the lower slot, as approx_max_k does in
   the JAX package on the CPU.
 - A round that starts with exactly 2B free slots routes its children
@@ -54,10 +61,13 @@ def _set(env, **opts):
     return env
 
 
-def _runners(name):
-    """The JAX and the port runner (B, C, T) on the same model, f64."""
+def _runners(name, dtype="f64"):
+    """The JAX and the port runner (B, C, T) on the same model, under
+    `dtype` (f64, or "mixed": the default policy)."""
     gen, args = MODELS[name]
-    opts = dict(node_batch=B, log_level=1, dtype="f64", device_tree=1)
+    opts = dict(node_batch=B, log_level=1, device_tree=1)
+    if dtype != "mixed":
+        opts["dtype"] = dtype
     jb = JaxBnB(getattr(JG, gen)(*args), _set(JaxEnv(), **opts))
     pb = BranchAndBound(getattr(G, gen)(*args), _set(Environment(), **opts),
                         device="cpu")
@@ -93,10 +103,10 @@ def _nodes(sp, count, seed, node_cls):
     return out
 
 
-def _one_call(name, count, cutoff, seed=0):
+def _one_call(name, count, cutoff, seed=0, dtype="f64"):
     """One multiround call of both runners from the same nodes; returns
     (JAX pool, port pool, JAX summary, port summary, n, m)."""
-    jr, pr = _runners(name)
+    jr, pr = _runners(name, dtype)
     sp = pr.sp
     jst = jr._init_state(_nodes(jr.sp, count, seed, JaxNode))
     pst = pr._init_state(_nodes(sp, count, seed, Node))
@@ -135,6 +145,49 @@ def test_multiround_matches_jax(name, cutoff):
     assert np.array_equal(js[counts], ps[counts])
     assert ps[0] == T and B < ps[7] <= B * T
     _close(js, ps)
+
+
+def test_multiround_mixed_policy_is_sound():
+    jp, pp, js, ps, n, m = _one_call("cknap", 12, np.inf, dtype="mixed")
+    o = 3 * n + m
+    # occupancy, depth, branching variable and direction: exact
+    for col in (o + 6, o + 1, o + 2, o + 3):
+        assert np.array_equal(jp[:, col], pp[:, col]), col
+    # rounds, pool size, processed/created/pruned counts: exact (the
+    # IPM iteration sum follows each package's rounding)
+    counts = [0, 1, 6, 7, 8, 9, 10]
+    assert np.array_equal(js[counts], ps[counts])
+    assert ps[0] == T and ps[7] > B
+    # every integer point of the knapsack, its objective and feasibility
+    p = G.correlated_knapsack(*MODELS["cknap"][1])
+    pts = ((np.arange(2 ** n)[:, None] >> np.arange(n)) & 1).astype(float)
+    feas = np.array([p.is_feasible(x) for x in pts])
+    objs = np.array([p.eval_objective(x) for x in pts])
+    opt = G.knapsack_dp_optimum(*MODELS["cknap"][1])
+    assert abs(objs[feas].min() - opt) <= 1e-9 * abs(opt)
+    tol = 1e-6 * (1 + abs(opt))
+    used = np.where(pp[:, o + 6] > 0.5)[0]
+    assert used.size == ps[1]
+    # the hand-built nodes carry made-up bounds: hold only the slots the
+    # call wrote (a hand-built node never processed keeps its own box and
+    # bound)
+    sp = _runners("cknap", "mixed")[1].sp
+    made = {(tuple(nd.vlb), tuple(nd.vub), nd.lb)
+            for nd in _nodes(sp, 12, 0, Node)}
+    written = [s for s in used if (tuple(pp[s, :n]), tuple(pp[s, n:2 * n]),
+                                   pp[s, o]) not in made]
+    assert len(written) >= B
+    for pool in (pp, jp):
+        for s in written:
+            inside = feas & np.all((pts >= pool[s, :n] - 1e-9) &
+                                   (pts <= pool[s, n:2 * n] + 1e-9), axis=1)
+            if inside.any():
+                assert pool[s, o] <= objs[inside].min() + tol, s
+    # the device incumbent is a feasible point's value: not below the
+    # optimum; the pool's bound with it covers the optimum
+    for summ in (js, ps):
+        assert summ[3] >= opt - tol
+        assert min(summ[2], summ[3]) <= opt + tol
 
 
 def test_selection_ties_pick_lower_slot():

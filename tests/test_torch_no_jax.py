@@ -4,7 +4,8 @@ Checked in a fresh interpreter (this test process has jax loaded by
 conftest): import every module of minotaur_tpu_torch (the NL path, the
 readers, the QG/OA path, the global path, the solver CLIs, the node
 store, QPD, the sweep, the multi-device layer and the device-resident
-node pool, the bench entry and the example gallery included), then look
+node pool, the bench entry, the example gallery, the graft entry and
+the root tools' ports included), then look
 at sys.modules.  The port keeps its own
 copies of the JAX package's numpy-only modules; those copied as they
 are must stay byte-equal to the JAX package's file (utils/environment.py
@@ -47,7 +48,10 @@ for name in ("ops.stage", "ops.interval", "engines.staging", "convert",
              "glob.glob_step", "glob.glob_bnb", "solvers.mglob",
              "parallel", "parallel.pool", "parallel.dist_bnb",
              "parallel.multihost", "solvers.mqgdist", "solvers.mqgmpi",
-             "bnb.device_pool", "bench", "examples") + tuple(
+             "bnb.device_pool", "bench", "examples", "graft_entry",
+             "tools.run_sweep", "tools.ab_qpd", "tools.dist_sweep",
+             "tools.microbench_inv", "tools.microbench_tailops",
+             "tools.microbench_calib", "tools.timing") + tuple(
                  "examples." + f[:-3] for f in sorted(os.listdir(
                      os.path.join(minotaur_tpu_torch.__path__[0],
                                   "examples")))
