@@ -5,8 +5,14 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
 
   1. identify the card (nvidia-smi name and power limit, torch, CUDA);
   2. build the CUDA kernels from minotaur_tpu_torch/csrc/;
-  3. K1 (spd_inverse) against its plain PyTorch version on the card;
-  4. K2 (spd_solve) against its plain PyTorch version on the card;
+  3. K1 (spd_inverse) against its plain PyTorch version on the card, and
+     its cluster design (the partition, NL and glob shapes, failures in a
+     late panel and from a NaN) under every cluster size the dispatch can
+     pick, bit-equal to its one-CTA design;
+  4. K2 (spd_solve) against its plain PyTorch version on the card, and
+     its cluster design at (16, 1024) and (64, 1378) with refinement 1-3
+     under every cluster size the dispatch can pick, bit-equal to its
+     one-CTA design;
   5. the batched IPM through the kernels against the IPM through the
      plain versions, on intquad(300): the root box plus 63 seeded boxes,
      under the f64 policy and the bench's mixed settings;
@@ -97,7 +103,8 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
      (`tools/microbench_{inv,tailops,calib}.py`), K1 launched by the
      inverse's.
 
-Every phase prints one line; any failed check raises and the process
+Every phase prints its lines and then its wall seconds ("[t] ..."); any
+failed check raises and the process
 exits non-zero without the final line.  The next-to-last line is the
 kernels' JSON record, the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -118,18 +125,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 # phase 7: normcon(n, seed) at B lanes (SUITE["normcon_1024a"]), its full
 # search capped at node_cap nodes and time_cap seconds
-NL = dict(n=1024, seed=7, B=64, node_cap=32, time_cap=150.0)
+NL = dict(n=1024, seed=7, B=64, node_cap=8, time_cap=150.0)
 NL_ROWS = ("normcon_20a", "expbudget_8a", "ex1223_a", "batchdes_a")
+# phase 7: the NL row the mbnb CLI solves (7 nodes; normcon_20a's 4355
+# nodes ran above in-process)
+CLI_ROW = "batchdes_a"
 # phase 8: QGBranchAndBound on normcon(n, seed) at B lanes (the sweep's
 # mqg row normcon_1024a), capped at node_cap nodes and time_cap seconds
-QG = dict(n=1024, seed=7, B=64, node_cap=16, time_cap=180.0)
+QG = dict(n=1024, seed=7, B=64, node_cap=8, time_cap=180.0)
 # phase 9a: the main-path model under dtype f32 with Gondzio correctors
 # and OBBT (whose linear view of intquad is one row: K1 at (2n, 1, 1))
 F32_PATH = dict(n=300, node_cap=8192, time_cap=10.0, obbt_k=1,
                 options=(("dtype", "f32"), ("obbt", 1)), gondzio=2,
                 max_flips=4)
 # phase 9b: normcon(n, seed) under nodeproc qpd + qpdheur, capped
-QPD = dict(n=1024, seed=7, B=64, node_cap=256, time_cap=60.0)
+QPD = dict(n=1024, seed=7, B=64, node_cap=128, time_cap=60.0)
 # phase 9c: the checkpointed run's node cap, the resumed run's time cap
 CKPT = dict(node_cap=320, time_cap=10.0)
 # phase 10: the global path on quadratic_knapsack(n, density, seed) at B
@@ -138,8 +148,8 @@ CKPT = dict(node_cap=320, time_cap=10.0)
 # pool_cap; mglob on qknap(cli_n) (10c); obbt 1 on qknap(obbt_n) capped
 # at obbt_cap (10d); the searches' caps are short so that all fifteen
 # phases fit in the script's 1200 s
-GLOB = dict(n=100, density=0.25, seed=0, B=64, time_cap=20.0, pairs=64,
-            pool_cap=10.0, cli_n=16, obbt_n=24, obbt_cap=15.0)
+GLOB = dict(n=100, density=0.25, seed=0, B=64, time_cap=15.0, pairs=64,
+            pool_cap=8.0, cli_n=16, obbt_n=24, obbt_cap=15.0)
 # phase 11: the multi-device layer on one card: `parts` partitions of
 # B / parts lanes; 11b runs DistQGBranchAndBound on normcon(n, seed)
 # capped at node_cap nodes and time_cap seconds; 11d runs `mqgmpi --spawn
@@ -160,9 +170,10 @@ POOL = dict(cap=4096, rounds=8, warm=4, knap=(30, 1), knap_batch=16,
 # sweep_rows (suite rows written as .nl), ab_qpd on its stand-in and
 # qknap12, dist_sweep on correlated_knapsack(*knap) at P = 1 .. max_parts
 # at node_batch lanes (the tool's default is 32: 122 s for the three P on
-# an NVIDIA H100 80GB HBM3 at 700 W, 96 s at 64)
+# an NVIDIA H100 80GB HBM3 at 700 W, 96 s at 64, 116-183 s at 128: 64
+# keeps chip_smoke inside its 1200 s on a slow host)
 TOOLS = dict(sweep_rows=("st_e14a", "batchdes_a", "ex1223_a"),
-             sweep_time=60.0, knap=(30, 1), max_parts=4, node_batch=128)
+             sweep_time=60.0, knap=(30, 1), max_parts=4, node_batch=64)
 # phase 14: bilinear_demo's node batch (its test's 8 took 182 s on an
 # NVIDIA H100 80GB HBM3 at 700 W and 64 took 69 s: the supersteps' host
 # dispatch)
@@ -313,13 +324,14 @@ def phase_build():
 def spoil(M, defect):
     """Make lane 0 of M fail: "shift" (-6 I, at column 0), "late" (the
     pivot of column 2*32+5, or of the last column, driven to -0.5, so the
-    failure comes after two panels of updates), "nan" (one NaN pair)."""
+    failure comes after two panels of updates), "end" (the same at column
+    k - 40, in one of the last panels), "nan" (one NaN pair)."""
     import numpy as np
     k = M.shape[-1]
     if defect == "shift":
         M[0] -= 6.0 * np.eye(k)
-    elif defect == "late":
-        j = min(2 * 32 + 5, k - 1)
+    elif defect in ("late", "end"):
+        j = min(2 * 32 + 5, k - 1) if defect == "late" else max(k - 40, 0)
         s = M[0, j, :j] @ np.linalg.solve(M[0, :j, :j], M[0, :j, j]) if j else 0.0
         M[0, j, j] = s - 0.5
     elif defect == "nan":
@@ -327,10 +339,133 @@ def spoil(M, defect):
     return M
 
 
+# the cluster sizes each kernel's dispatch can pick (csrc/*.cu: kMaxClusterA,
+# kMaxClusterS); the cluster-design cases run through each and through one
+# CTA a lane
+K1_CLUSTERS = (2, 4)
+K2_CLUSTERS = (2, 4)
+
+
+def design_name(c):
+    """A kernel's design as the dispatch reports it (0, 1 or C)."""
+    return {0: "row-block grid", 1: "one-CTA"}.get(c, f"cluster {c}")
+
+
+def spd_batch_dev(dev, B, k, seed, dtype, defect="none"):
+    """B SPD lanes (A A' / k + 2 I) made on the card from a seed, lane 0
+    spoiled on the host (`spoil`), in `dtype`."""
+    import numpy as np
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((B, k, k), generator=g, dtype=torch.float64, device=dev)
+    M = A @ A.transpose(1, 2) / k + 2.0 * torch.eye(
+        k, dtype=torch.float64, device=dev)
+    del A
+    if defect != "none":
+        m0 = M[0].cpu().numpy()[None].copy()
+        M[0] = torch.as_tensor(spoil(m0, defect)[0], device=dev)
+    return M.to(dtype).contiguous()
+
+
+def k1_cluster_cases(dev):
+    """K1's cluster design on the partition shape (16, 1024) f32, the NL
+    shape (64, 1024) f64, a failure in one of the last panels at the glob
+    order (4, 1378) f32, and a NaN at a ragged order (2, 1025) f64: each
+    through one CTA a lane and every cluster size the dispatch can pick,
+    against plain (flags, values, residual, identity on the failed lane)
+    and bit for bit against the one-CTA design.  Returns the runs."""
+    import torch
+    from minotaur_tpu_torch.ops.spd_inverse import (spd_inverse_cuda,
+                                                    spd_inverse_plain)
+    F32, F64 = torch.float32, torch.float64
+    runs = 0
+    for B, k, defect, dt in ((16, 1024, "none", F32), (64, 1024, "none", F64),
+                             (4, 1378, "end", F32), (2, 1025, "nan", F64)):
+        ms = spd_batch_dev(dev, B, k, 31 * k + B, dt, defect)
+        pminv, pflag = spd_inverse_plain(ms)
+        tol = 5e-5 if dt == F32 else 1e-11
+        eye = torch.eye(k, dtype=F64, device=dev)
+        ok = pflag == 0
+        ref = None
+        for C in (1,) + K1_CLUSTERS:
+            minv, flag = spd_inverse_cuda(ms, C)
+            torch.cuda.synchronize()
+            what = (B, k, defect, str(dt), f"C={C}")
+            check(torch.equal(flag, pflag), f"K1 flags differ at {what}")
+            check(flag[0].item() == (0.0 if defect == "none" else 2.0),
+                  f"K1 lane 0 flag {flag[0].item()} at {what}")
+            err = (minv - pminv).abs().max().item()
+            check(err <= tol * pminv.abs().max().item(),
+                  f"K1 vs plain {err:.3g} at {what}")
+            if bool(ok.any()):
+                resid = (eye - ms.double()[ok] @ minv.double()[ok]).abs() \
+                    .max().item()
+                check(resid < tol, f"K1 residual {resid:.3g} at {what}")
+            if defect != "none":
+                check(torch.equal(minv[0], eye.to(dt)),
+                      f"K1 failed lane is not the identity at {what}")
+            if ref is None:
+                ref = minv
+            else:
+                check(torch.equal(minv, ref),
+                      f"K1 cluster design differs from one CTA at {what}")
+            runs += 1
+        del ms, pminv, ref, minv
+        torch.cuda.empty_cache()
+    return runs
+
+
+def k2_cluster_cases(dev):
+    """K2's cluster design with refinement 1-3 at (16, 1024) and (64, 1378),
+    R = 1 and 3, f32 factor and operator with f64 r and x, and f64
+    throughout: each through one CTA a lane and every cluster size the
+    dispatch can pick, against plain (values, residual) and bit for bit
+    against the one-CTA design.  Returns the runs."""
+    import itertools
+    import torch
+    from minotaur_tpu_torch.ops.spd_solve import spd_solve_cuda, \
+        spd_solve_plain
+    F32, F64 = torch.float32, torch.float64
+    runs = 0
+    for B, k in ((16, 1024), (64, 1378)):
+        M, dinv, shift, minv32, minv64 = k2_inputs(dev, B, k, 77 * k + B)
+        g = torch.Generator(device=dev).manual_seed(k + B)
+        for R, steps, fdt in itertools.product((1, 3), (1, 2, 3),
+                                               (F32, F64)):
+            r = torch.randn((B, k, R), generator=g, dtype=F64, device=dev)
+            args = (minv32 if fdt == F32 else minv64, M.to(fdt),
+                    dinv.to(fdt), shift.to(fdt), r[:, :, 0] if R == 1 else r,
+                    steps, F64)
+            px = spd_solve_plain(*args)
+            tol = 1e-5 if fdt == F32 else 1e-11
+            ref = None
+            for C in (1,) + K2_CLUSTERS:
+                x = spd_solve_cuda(*args, cluster=C)
+                torch.cuda.synchronize()
+                what = (B, k, R, steps, str(fdt), f"C={C}")
+                err = (x - px).abs().max().item()
+                check(err <= tol * px.abs().max().item(),
+                      f"K2 vs plain {err:.3g} at {what}")
+                xx = x.reshape(B, k, R)
+                res = (r - (M @ xx + shift[:, :, None] * xx)).norm() / r.norm()
+                check(res.item() < 1e-5, f"K2 residual {res.item():.3g} at "
+                      f"{what}")
+                if ref is None:
+                    ref = x
+                else:
+                    check(torch.equal(x, ref), f"K2 cluster design differs "
+                          f"from one CTA at {what}")
+                runs += 1
+        del M, minv32, minv64
+        torch.cuda.empty_cache()
+    return runs
+
+
 def phase_k1(record):
     import numpy as np
     import torch
     from minotaur_tpu_torch.ops.spd_inverse import (spd_inverse,
+                                                    spd_inverse_design,
                                                     spd_inverse_plain)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -367,6 +502,7 @@ def phase_k1(record):
                 check(torch.equal(minv[0], torch.eye(k, dtype=dt, device=dev)),
                       f"K1 failed lane is not the identity at {what}")
             worst[(B, k, str(dt))] = err
+    n_cl = k1_cluster_cases(dev)
     # the spec's ill-conditioned Jacobi-scaled case
     k = 200
     M = spd_batch(rng, 2, k, 1.0)
@@ -394,7 +530,9 @@ def phase_k1(record):
             B, k, ms.element_size())
     t32, t64 = times[torch.float32], times[torch.float64]
     say(f"[3] K1 spd_inverse ok on {len(cases)} cases x f32/f64 (flags equal "
-        f"to plain, incl. ragged k, late-panel and NaN failures): "
+        f"to plain, incl. ragged k, late-panel and NaN failures) and "
+        f"{n_cl} cluster-design runs (4 cases x one-CTA and C = "
+        f"{'/'.join(map(str, K1_CLUSTERS))}, bit-equal to one CTA): "
         f"max|kernel-plain| (64,300,300) f32 "
         f"{worst[(64, 300, str(torch.float32))]:.3g}, f64 "
         f"{worst[(64, 300, str(torch.float64))]:.3g}; ill-cond resid "
@@ -406,7 +544,8 @@ def phase_k1(record):
         f"{t64['bound_ms']:.4f} ({t64['bound_by']})")
     record["spd_inverse"] = dict(
         max_abs_err=worst[(64, 300, str(torch.float32))], **t32,
-        **{"f64_" + key: v for key, v in t64.items() if key != "bound_by"})
+        **{"f64_" + key: v for key, v in t64.items() if key != "bound_by"},
+        design=design_name(spd_inverse_design(B, k)))
 
 
 def k2_inputs(dev, B, k, seed):
@@ -428,7 +567,8 @@ def k2_inputs(dev, B, k, seed):
 def phase_k2(record):
     import itertools
     import torch
-    from minotaur_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    from minotaur_tpu_torch.ops.spd_solve import (spd_solve, spd_solve_design,
+                                                  spd_solve_plain)
     dev = torch.device("cuda")
     F32, F64 = torch.float32, torch.float64
     # k: the scalar path (1, 31, 33, 301) and the 16-byte path (300, 1000;
@@ -470,6 +610,7 @@ def phase_k2(record):
                 key = (fdt, mdt, rdt, odt)
                 worst[key] = max(worst.get(key, 0.0), err)
                 ncase += 1
+    n_cl = k2_cluster_cases(dev)
     # times at the bench shape
     B, k = 64, 300
     M, dinv, shift, minv32, minv64 = k2_inputs(dev, B, k, 7)
@@ -510,7 +651,10 @@ def phase_k2(record):
     t["f64_refine3_bound_ms"] = k2_bound(B, k, 8, 8, steps=3)[0]
     main_err = worst[(F32, F32, F64, F64)]
     say(f"[4] K2 spd_solve ok on {ncase} cases (k 1..1000, B 1/64, R 1/3/8, "
-        f"refine 0/1/3, 4 dtype combos): max|kernel-plain| "
+        f"refine 0/1/3, 4 dtype combos) and {n_cl} cluster-design runs "
+        f"((16,1024) and (64,1378), R 1/3, refine 1-3, f32 and f64 factors, "
+        f"one-CTA and C = {'/'.join(map(str, K2_CLUSTERS))}, bit-equal to one "
+        f"CTA): max|kernel-plain| "
         + ", ".join(f"{'/'.join(str(d)[6:] for d in key)} {v:.3g}"
                     for key, v in worst.items())
         + f"; ms per call at (64,300), device (CUDA graph replay) and, in "
@@ -527,8 +671,12 @@ def phase_k2(record):
         f"{t['f64_refine3_plain_ms']:.4f} bound "
         f"{t['f64_refine3_bound_ms']:.4f}; bmm alone {t['bmm_core_ms']:.4f}")
     # no single PyTorch call computes the scaled, refined solve
-    record["spd_solve"] = dict(max_abs_err=main_err, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=None, **t)
+    record["spd_solve"] = dict(
+        max_abs_err=main_err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        design=design_name(spd_solve_design(B, k, 1, F32, F32, 0)),
+        refine2_design=design_name(spd_solve_design(B, k, 1, F32, F32, 2)),
+        f64_refine3_design=design_name(spd_solve_design(B, k, 1, F64, F64, 3)),
+        **t)
 
 
 def ipm_vs_plain(sp, lo, hi, label, kw, obj_tol, max_flips=0):
@@ -609,11 +757,16 @@ def phase_main_path(record):
     from minotaur_tpu_torch.utils.environment import Environment
     from minotaur_tpu_torch.utils.types import SolveStatus
 
-    for name, prob, opt in (
-            ("cknap_30a", correlated_knapsack(30, 1), knapsack_dp_optimum(30, 1)),
-            ("intquad_24", intquad(24, 4, 0), intquad_optimum(24, 4, 0))):
+    # intquad_24 at the bench's 64 lanes (at the default batch its 415
+    # nodes took 31.8-47.3 s of host-bound supersteps)
+    for name, prob, opt, batch in (
+            ("cknap_30a", correlated_knapsack(30, 1),
+             knapsack_dp_optimum(30, 1), None),
+            ("intquad_24", intquad(24, 4, 0), intquad_optimum(24, 4, 0), 64)):
         env = Environment()
         env.set_option("log_level", 1)
+        if batch:
+            env.set_option("node_batch", batch)
         t0 = time.monotonic()
         bab = BranchAndBound(prob, env, device=DEVICE)
         st = bab.solve()
@@ -666,8 +819,10 @@ def phase_nl_kernels(record):
     versions on the same inputs."""
     import torch
     from minotaur_tpu_torch.ops.spd_inverse import (spd_inverse,
+                                                    spd_inverse_design,
                                                     spd_inverse_plain)
-    from minotaur_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    from minotaur_tpu_torch.ops.spd_solve import (spd_solve, spd_solve_design,
+                                                  spd_solve_plain)
     dev = torch.device(DEVICE)
     F64 = torch.float64
     B, k = NL["B"], NL["n"]
@@ -692,6 +847,7 @@ def phase_nl_kernels(record):
               library_ms=event_ms(lambda: torch.linalg.inv_ex(ms), calls=5,
                                   reps=3))
     k1["bound_ms"], k1_by = k1_bound(B, k, 8)
+    k1["design"] = design_name(spd_inverse_design(B, k))
     del ms
     M, dinv, shift, _minv32, minv64 = k2_inputs(dev, B, k, 13)
     del _minv32
@@ -710,13 +866,16 @@ def phase_nl_kernels(record):
               plain_ms=graph_ms(lambda: spd_solve_plain(*args), calls=10,
                                 reps=3))
     k2["bound_ms"], k2_by = k2_bound(B, k, 8, 8, steps=3)
+    k2["design"] = design_name(spd_solve_design(B, k, 1, F64, F64, 3))
     del M, minv64, args
     torch.cuda.empty_cache()
-    say(f"[7] K1 spd_inverse ({B},{k},{k}) f64: flags equal to plain, resid "
+    say(f"[7] K1 spd_inverse ({B},{k},{k}) f64 [{k1['design']}]: flags equal "
+        f"to plain, resid "
         f"{resid:.3g}, max|kernel-plain| {k1_err:.3g}; ms kernel "
         f"{k1['ms']:.4f} plain {k1['plain_ms']:.4f} inv_ex "
         f"{k1['library_ms']:.4f} bound {k1['bound_ms']:.4f} ({k1_by}).  "
-        f"K2 spd_solve ({B},{k}) f64 refine 3: max|kernel-plain| "
+        f"K2 spd_solve ({B},{k}) f64 refine 3 [{k2['design']}]: "
+        f"max|kernel-plain| "
         f"{k2_err:.3g}, resid {res:.3g}; device ms (CUDA graph replay) "
         f"kernel {k2['ms']:.4f} plain {k2['plain_ms']:.4f} bound "
         f"{k2['bound_ms']:.4f} ({k2_by})")
@@ -864,13 +1023,13 @@ def phase_nl_bnb(record):
 
 def phase_cli(record):
     """`python -m minotaur_tpu_torch.solvers.mbnb file.nl` on the card:
-    normcon_20a written by the port's nl_writer."""
+    CLI_ROW written by the port's nl_writer."""
     from minotaur_tpu_torch.io.nl_writer import write_nl
     from minotaur_tpu_torch.models.convex_suite import SUITE
-    gen, oracle, _ = SUITE["normcon_20a"]
+    gen, oracle, _ = SUITE[CLI_ROW]
     opt = oracle()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "normcon_20a.nl")
+        path = os.path.join(tmp, CLI_ROW + ".nl")
         write_nl(gen(), path)
         env = dict(os.environ, PYTHONPATH=HERE)
         t0 = time.monotonic()
@@ -881,7 +1040,7 @@ def phase_cli(record):
         dt = time.monotonic() - t0
         log = out.stdout + out.stderr
         check(out.returncode == 0, f"mbnb exited {out.returncode}:\n{log[-3000:]}")
-        sol = os.path.join(tmp, "normcon_20a.sol")
+        sol = os.path.join(tmp, CLI_ROW + ".sol")
         check(os.path.exists(sol), "mbnb wrote no .sol file")
         objs = [float(line.rsplit(" ", 1)[1]) for line in log.splitlines()
                 if "best objective:" in line]
@@ -889,7 +1048,7 @@ def phase_cli(record):
               f"mbnb objective {objs} vs oracle {opt}")
         with open(sol) as fh:
             head = fh.readline().strip()
-    say(f"[7] mbnb CLI on normcon_20a.nl: exit 0 in {dt:.2f} s, best objective "
+    say(f"[7] mbnb CLI on {CLI_ROW}.nl: exit 0 in {dt:.2f} s, best objective "
         f"{objs[0]:.10g} (oracle {opt:.10g}), .sol '{head}'")
 
 
@@ -990,12 +1149,15 @@ def f32_kernels_vs_plain(B, k, seeds, steps=2):
     """K1 in f32 at (B, k, k) and K2 at (B, k) with the IPM's default call
     (f32 factor and operator, f64 r and x, refine `steps`) against their
     plain versions on seeded SPD lanes, timed.  Returns two dicts: K1's
-    (resid, max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)
-    and K2's (resid, max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    (resid, max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by,
+    design) and K2's (resid, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    design)."""
     import torch
     from minotaur_tpu_torch.ops.spd_inverse import (spd_inverse,
+                                                    spd_inverse_design,
                                                     spd_inverse_plain)
-    from minotaur_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    from minotaur_tpu_torch.ops.spd_solve import (spd_solve, spd_solve_design,
+                                                  spd_solve_plain)
     dev = torch.device(DEVICE)
     F64 = torch.float64
     calls = 5 if k >= 1000 else 20
@@ -1022,6 +1184,7 @@ def f32_kernels_vs_plain(B, k, seeds, steps=2):
               library_ms=event_ms(lambda: torch.linalg.inv_ex(ms),
                                   calls=calls, reps=3))
     k1["bound_ms"], k1["bound_by"] = k1_bound(B, k, 4)
+    k1["design"] = design_name(spd_inverse_design(B, k))
     del ms
     M, dinv, shift, minv32, _minv64 = k2_inputs(dev, B, k, seeds[1])
     del _minv64
@@ -1042,18 +1205,22 @@ def f32_kernels_vs_plain(B, k, seeds, steps=2):
               plain_ms=graph_ms(lambda: spd_solve_plain(*args), calls=10,
                                 reps=3))
     k2["bound_ms"], k2["bound_by"] = k2_bound(B, k, 4, 4, steps=steps)
+    k2["design"] = design_name(spd_solve_design(B, k, 1, torch.float32,
+                                                torch.float32, steps))
     del M, minv32, m32, args
     torch.cuda.empty_cache()
     return k1, k2
 
 
 def kernels_line(B, k, steps, k1, k2):
-    return (f"K1 spd_inverse ({B},{k},{k}) f32: flags equal to plain, resid "
+    return (f"K1 spd_inverse ({B},{k},{k}) f32 [{k1['design']}]: flags equal "
+            f"to plain, resid "
             f"{k1['resid']:.3g}, max|kernel-plain| {k1['max_abs_err']:.3g}; "
             f"ms kernel {k1['ms']:.4f} plain {k1['plain_ms']:.4f} inv_ex "
             f"{k1['library_ms']:.4f} bound {k1['bound_ms']:.4f} "
-            f"({k1['bound_by']}).  K2 spd_solve ({B},{k}) f32 factor and "
-            f"operator, f64 r and x, refine {steps}: max|kernel-plain| "
+            f"({k1['bound_by']}).  K2 spd_solve ({B},{k}) [{k2['design']}] "
+            f"f32 factor and operator, f64 r and x, refine {steps}: "
+            f"max|kernel-plain| "
             f"{k2['max_abs_err']:.3g}, resid {k2['resid']:.3g}; device ms "
             f"(CUDA graph replay) kernel {k2['ms']:.4f} plain "
             f"{k2['plain_ms']:.4f} bound {k2['bound_ms']:.4f} "
@@ -1061,7 +1228,8 @@ def kernels_line(B, k, steps, k1, k2):
 
 
 def record_kernels(record, prefix1, prefix2, k1, k2):
-    keep = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")
+    keep = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "design")
     record["spd_inverse"].update({prefix1 + key: k1[key] for key in keep})
     record["spd_solve"].update({prefix2 + key: k2[key] for key in keep
                                 if key in k2})
@@ -1737,37 +1905,52 @@ def phase_glob_cli(record):
     convex.new_objective(Function(qf=qf))
     qk = quadratic_knapsack(GLOB["cli_n"], GLOB["density"], GLOB["seed"])
     lines = []
+    jobs = []
     with tempfile.TemporaryDirectory() as tmp:
-        for name, prob, opt, says in (
-                (f"qknap{GLOB['cli_n']}", qk, qknap_optimum(qk), "nodes:"),
-                ("convminlp", convex, 6.89, "forwarding to QG")):
-            path = os.path.join(tmp, name + ".nl")
-            write_nl(prob, path)
-            env = dict(os.environ, PYTHONPATH=HERE)
-            t0 = time.monotonic()
-            out = subprocess.run(
-                [sys.executable, "-m", "minotaur_tpu_torch.solvers.mglob",
-                 path, "--write_sol_file", "1", "--node_batch", "64"],
-                cwd=tmp, env=env, capture_output=True, text=True,
-                timeout=300)
-            dt = time.monotonic() - t0
-            log = out.stdout + out.stderr
-            check(out.returncode == 0,
-                  f"mglob exited {out.returncode}:\n{log[-3000:]}")
-            objs = [float(line.rsplit(" ", 1)[1]) for line in
-                    log.splitlines() if "best objective:" in line]
-            check(len(objs) == 1 and
-                  abs(objs[0] - opt) <= 1e-6 * (1 + abs(opt)),
-                  f"mglob on {name}: objective {objs} vs optimum {opt}")
-            check(says in log, f"mglob on {name}: no '{says}' in the log")
-            sol = os.path.join(tmp, name + ".sol")
-            check(os.path.exists(sol), f"mglob wrote no .sol for {name}")
-            with open(sol) as fh:
-                head = fh.readline().strip()
-            lines.append(f"{name}.nl exit 0 in {dt:.2f} s, best objective "
-                         f"{objs[0]:.10g} (optimum {opt:.10g}), .sol "
-                         f"'{head}'")
-    say("[10c] mglob CLI: " + "; ".join(lines))
+        try:
+            # the two command lines at once
+            for name, prob, opt, says in (
+                    (f"qknap{GLOB['cli_n']}", qk, qknap_optimum(qk),
+                     "nodes:"),
+                    ("convminlp", convex, 6.89, "forwarding to QG")):
+                path = os.path.join(tmp, name + ".nl")
+                write_nl(prob, path)
+                env = dict(os.environ, PYTHONPATH=HERE)
+                jobs.append((name, opt, says, time.monotonic(),
+                             subprocess.Popen(
+                                 [sys.executable, "-m",
+                                  "minotaur_tpu_torch.solvers.mglob", path,
+                                  "--write_sol_file", "1", "--node_batch",
+                                  "64"], cwd=tmp, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)))
+            for name, opt, says, t0, proc in jobs:
+                out_s, err_s = proc.communicate(timeout=300)
+                lines.append(mglob_cli_line(tmp, name, opt, says,
+                                            proc.returncode, out_s + err_s,
+                                            time.monotonic() - t0))
+        finally:
+            for *_, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    say("[10c] mglob CLI (both at once): " + "; ".join(lines))
+
+
+def mglob_cli_line(tmp, name, opt, says, rc, log, dt):
+    """10c's checks of one mglob run; its part of the phase line."""
+    check(rc == 0, f"mglob exited {rc}:\n{log[-3000:]}")
+    objs = [float(line.rsplit(" ", 1)[1]) for line in log.splitlines()
+            if "best objective:" in line]
+    check(len(objs) == 1 and abs(objs[0] - opt) <= 1e-6 * (1 + abs(opt)),
+          f"mglob on {name}: objective {objs} vs optimum {opt}")
+    check(says in log, f"mglob on {name}: no '{says}' in the log")
+    sol = os.path.join(tmp, name + ".sol")
+    check(os.path.exists(sol), f"mglob wrote no .sol for {name}")
+    with open(sol) as fh:
+        head = fh.readline().strip()
+    return (f"{name}.nl exit 0 in {dt:.2f} s, best objective "
+            f"{objs[0]:.10g} (optimum {opt:.10g}), .sol '{head}'")
 
 
 def phase_glob_obbt(record):
@@ -2388,7 +2571,7 @@ def phase_tools(record):
         # 15c: the partition-count sweep on one card
         knap = TOOLS["knap"]
         dp = knapsack_dp_optimum(*knap)
-        path = os.path.join(tmp, "cknap30.nl")
+        path = os.path.join(tmp, f"cknap{knap[0]}.nl")
         write_nl(correlated_knapsack(*knap), path)
         devices = dist_sweep.default_devices(DEVICE)
         with tool_output_to_stderr():
@@ -2499,13 +2682,14 @@ def main() -> int:
         t0 = time.monotonic()
         phase(record)
         seconds[phase.__name__[6:]] = round(time.monotonic() - t0, 1)
+        say(f"[t] {phase.__name__[6:]} {seconds[phase.__name__[6:]]} s")
     say(f"[t] wall s by phase: {seconds}")
     launches = record["launches"]
     kernels = []
     for name, src, rep in (
-            ("spd_inverse", "minotaur_tpu_torch/csrc/spd_inverse.cu",
+            ("spd_inverse", "minotaur_tpu_torch/csrc/spd_inverse.cuh",
              "minotaur_tpu/ops/pallas_kkt.py:204"),
-            ("spd_solve", "minotaur_tpu_torch/csrc/spd_solve.cu",
+            ("spd_solve", "minotaur_tpu_torch/csrc/spd_solve.cuh",
              "minotaur_tpu/ops/pallas_kernels.py:76")):
         r = dict(record[name])
         row = {"name": name, "route": "cuda", "source": src,

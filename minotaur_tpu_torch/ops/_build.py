@@ -109,24 +109,33 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"mt_spd_inverse_{suffix}")
-        # (ms, out, xbuf, wbuf, fail, flag, B, k, stream)
-        fn.argtypes = [p] * 6 + [i, i, p]
+        # (ms, out, xbuf, wbuf, fail, flag, B, k, cluster, stream)
+        fn.argtypes = [p] * 6 + [i, i, i, p]
         fn.restype = i
-    # (k, itemsize) -> elements per lane of the global panel buffer
-    lib.mt_spd_inverse_wbuf_elems.argtypes = [i, i]
+    # (B, k, itemsize, cluster) -> elements per lane of the global panel
+    # buffer
+    lib.mt_spd_inverse_wbuf_elems.argtypes = [i] * 4
     lib.mt_spd_inverse_wbuf_elems.restype = ctypes.c_longlong
+    # (B, k) -> the design: 1 (one CTA a lane) or the cluster size
+    lib.mt_spd_inverse_design.argtypes = [i, i]
+    lib.mt_spd_inverse_design.restype = i
     # factor, operator, r and x dtypes
     for suffix in ("f32_f32_f32_f32", "f32_f32_f32_f64", "f32_f32_f64_f32",
                    "f32_f32_f64_f64", "f32_f64_f64_f64", "f64_f64_f64_f64"):
         fn = getattr(lib, f"mt_spd_solve_{suffix}")
         # (minv, m_op, dinv, shift, r, x, scratch, B, k, R, refine_steps,
-        #  stream)
-        fn.argtypes = [p] * 7 + [i, i, i, i, p]
+        #  cluster, stream)
+        fn.argtypes = [p] * 7 + [i, i, i, i, i, p]
         fn.restype = i
     # (k, R, factor itemsize, operator itemsize, refine_steps) -> bytes of
     # global scratch per lane
     lib.mt_spd_solve_scratch_bytes.argtypes = [i] * 5
     lib.mt_spd_solve_scratch_bytes.restype = ctypes.c_longlong
+    # (B, k, R, factor itemsize, operator itemsize, refine_steps) -> the
+    # design: 0 (refine 0, the row-block grid), 1 (one CTA a lane) or the
+    # cluster size
+    lib.mt_spd_solve_design.argtypes = [i] * 6
+    lib.mt_spd_solve_design.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -9,21 +9,30 @@ inverse), in which case the lane's `minv` is the identity.
 
 `spd_inverse` dispatches on the tensor's device: a CPU tensor goes to the
 plain PyTorch version `spd_inverse_plain`; a CUDA tensor goes to the CUDA
-kernel `csrc/spd_inverse.cu` (float32 or float64 instantiation) and
+kernel `csrc/spd_inverse.cuh` (float32 or float64 instantiation) and
 nothing else.  `spd_inverse.launches` counts calls that launched it.
 
-The kernel is three launches on the current stream.  A: one CTA per
-lane runs the blocked right-looking Cholesky with 32-column panels, with
-the forward substitution of L X = I carried along in each panel's
-rank-32 update (two warps factor and invert the next 32x32 diagonal block
-ahead while the others update; the panel sits in shared memory), so it
-writes Linv.  B: `Linv' Linv` on a grid of lower-triangle 64x64 tiles
-times lanes, which fills the card.  C: the flag, and the identity for
-failed lanes.  Panel width 32 is one warp's width: the diagonal factor
-needs no block barrier, and the 32 x k panel fits shared memory up to
-k = 1664 (f32) or 736 (f64).  Stage A is bound by its chain of k/32
-dependent panel steps and by the FMA rate of one SM per lane, not by
-the card's flops or bytes (the bound is in the source's note).
+The kernel is three launches on the current stream.  A: the blocked
+right-looking Cholesky with 32-column panels, with the forward
+substitution of L X = I carried along in each panel's rank-32 update (two
+warps factor and invert the next 32x32 diagonal block ahead while the
+others update), so it writes Linv.  B: `Linv' Linv` on a grid of
+lower-triangle 64x64 tiles times lanes, which fills the card.  C: the
+flag, and the identity for failed lanes.
+
+Stage A has two designs, and the C launcher picks one from (B, k)
+(`spd_inverse_design` reports it): one CTA a lane below k = 384 or above
+66 lanes (the main path's (64, 300)), else a thread-block cluster of C
+CTAs a lane, C = 2 at B = 64 and 4 at B <= 33, whose CTAs split each
+panel's substitution and update and read the panel from each other's
+shared memory.  One CTA a lane is bound by the chain of k/32 panel steps
+on B SMs; the cluster spreads that chain over B * C SMs, at a copy of the
+panel through distributed shared memory per step that grows with C.  Both
+round exactly alike (the same operations on every entry in the same
+order), so they return the same bits.  A cluster that cannot be placed
+raises; nothing falls back to the other design or to the plain version.
+The 32 x k panel sits in shared memory up to k = 1664 (f32) or 736 (f64),
+beyond that in a global buffer.  The bound is in the source's note.
 """
 
 from __future__ import annotations
@@ -35,6 +44,9 @@ import torch
 from . import _build
 
 _MAX_K = 16384
+# the `cluster` argument: 0 the launcher's pick, 1 one CTA a lane, or one
+# of the cluster sizes the launcher picks (csrc: kMaxClusterA)
+CLUSTER_ARGS = (0, 1, 2, 4)
 
 
 def spd_inverse_plain(ms: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,11 +83,19 @@ def _check(ms: torch.Tensor) -> None:
         raise ValueError(f"spd_inverse: k={ms.shape[1]} > {_MAX_K}")
 
 
-def spd_inverse_cuda(ms: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on `ms` (a CUDA tensor)."""
+def spd_inverse_cuda(ms: torch.Tensor,
+                     cluster: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on `ms` (a CUDA tensor).  `cluster` picks
+    stage A's design: 0 the launcher's own choice (`spd_inverse_design`),
+    1 one CTA a lane, 2 or 4 a cluster of that many CTAs a lane, the sizes
+    the launcher picks.  A cluster that cannot be placed on the card
+    raises."""
     _check(ms)
     if ms.device.type != "cuda":
         raise ValueError("spd_inverse_cuda: tensor is not on a CUDA device")
+    if cluster not in CLUSTER_ARGS:
+        raise ValueError(f"spd_inverse: cluster {cluster} not in "
+                         f"{CLUSTER_ARGS}")
     lib = _build.load_library()
     B, k = ms.shape[0], ms.shape[1]
     out = torch.empty_like(ms)
@@ -87,7 +107,7 @@ def spd_inverse_cuda(ms: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     with torch.cuda.device(ms.device):
         # scratch: the trailing matrix and R, then Linv; one fail word per
         # lane; the panel buffer only for lanes too large for shared memory
-        n = lib.mt_spd_inverse_wbuf_elems(k, ms.element_size())
+        n = lib.mt_spd_inverse_wbuf_elems(B, k, ms.element_size(), cluster)
         if n < 0:
             _build.check(-n, "spd_inverse device query")
         xbuf = torch.empty_like(ms)
@@ -96,10 +116,22 @@ def spd_inverse_cuda(ms: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         stream = torch.cuda.current_stream(ms.device).cuda_stream
         err = fn(ms.data_ptr(), out.data_ptr(), xbuf.data_ptr(),
                  None if wbuf is None else wbuf.data_ptr(), fail.data_ptr(),
-                 flag.data_ptr(), B, k, stream)
+                 flag.data_ptr(), B, k, cluster, stream)
     _build.check(err, "spd_inverse kernel launch")
     spd_inverse.launches += 1
     return out, flag
+
+
+def spd_inverse_design(B: int, k: int, device=None) -> int:
+    """Stage A's design for B lanes of order k on a CUDA device: 1 (one CTA
+    a lane) or the cluster size, as the launcher picks it."""
+    lib = _build.load_library()
+    with torch.cuda.device(device if device is not None else
+                           torch.cuda.current_device()):
+        c = lib.mt_spd_inverse_design(B, k)
+    if c < 0:
+        _build.check(-c, "spd_inverse device query")
+    return c
 
 
 def spd_inverse(ms: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -17,12 +17,21 @@ refinement runs; `r` is taken to the operator dtype and the result to
 
 `spd_solve` dispatches on the tensor's device: CPU tensors go to the
 plain PyTorch version `spd_solve_plain`; CUDA tensors go to the CUDA
-kernel `csrc/spd_solve.cu` and nothing else.  `spd_solve.launches`
+kernel `csrc/spd_solve.cuh` and nothing else.  `spd_solve.launches`
 counts calls that launched it (one kernel per call).  At refine 0 the
-kernel runs a grid of 32-row blocks times lanes; with refinement, one
-CTA per lane.  Float64 `r` and a float64 result are read and written by
-the kernel itself, so the IPM's mixed policy (float32 operator, float64
-vectors) runs no cast kernels around the call.
+kernel runs a grid of 32-row blocks times lanes (every main-path call).
+With refinement the C launcher picks one of two designs from (B, k)
+(`spd_solve_design` reports it): one CTA a lane, or, where rows load 8
+bytes or more at a time (k even, or f64) and k >= 256, a thread-block
+cluster of C CTAs a lane (C = 2 at B = 64, 4 at B = 16), each CTA on
+its own SM streaming a block of rows, the slices of each new vector
+copied between them through distributed shared memory.  Both are bound by the bytes of Minv_s and M
+streamed from HBM, by B or B * C SMs; both sum every row and the
+monotone test's norm in one order, so they return the same bits.  A
+cluster that cannot be placed raises; nothing falls back.  Float64 `r`
+and a float64 result are read and written by the kernel itself, so the
+IPM's mixed policy (float32 operator, float64 vectors) runs no cast
+kernels around the call.
 """
 
 from __future__ import annotations
@@ -38,6 +47,9 @@ from . import _build
 _PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.float64),
           (torch.float64, torch.float64))
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# the `cluster` argument: 0 the launcher's pick, 1 one CTA a lane, or one
+# of the cluster sizes the launcher picks (csrc: kMaxClusterS)
+CLUSTER_ARGS = (0, 1, 2, 4)
 
 
 def spd_solve_plain(minv_s, m_op, dinv, shift, r, refine_steps: int,
@@ -85,8 +97,13 @@ def _shapes(minv_s, m_op, dinv, shift, r):
 
 
 def spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps: int,
-                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Launch the CUDA kernel (all operands CUDA tensors)."""
+                   out_dtype: Optional[torch.dtype] = None,
+                   cluster: int = 0) -> torch.Tensor:
+    """Launch the CUDA kernel (all operands CUDA tensors).  `cluster` picks
+    the design of a refining call: 0 the launcher's own choice
+    (`spd_solve_design`), 1 one CTA a lane, 2 or 4 a cluster of that many
+    CTAs a lane, the sizes the launcher picks (refine 0 always takes the
+    row-block grid).  A cluster that cannot be placed on the card raises."""
     _shapes(minv_s, m_op, dinv, shift, r)
     md = m_op.dtype
     if (minv_s.dtype, md) not in _PAIRS:
@@ -101,10 +118,13 @@ def spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps: int,
         raise ValueError("spd_solve: minv_s and m_op must be contiguous")
     if refine_steps < 0:
         raise ValueError("spd_solve: refine_steps must be >= 0")
+    if cluster not in CLUSTER_ARGS:
+        raise ValueError(f"spd_solve: cluster {cluster} not in "
+                         f"{CLUSTER_ARGS}")
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
             return spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps,
-                                  out_dtype)
+                                  out_dtype, cluster)
     B, k = minv_s.shape[0], minv_s.shape[1]
     R = 1 if r.dim() == 2 else r.shape[2]
     od = out_dtype or md
@@ -134,10 +154,27 @@ def spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps: int,
         err = fn(minv_s.data_ptr(), m_op.data_ptr(), dv.data_ptr(),
                  sh.data_ptr(), rr.data_ptr(), x.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), B, k, R,
-                 int(refine_steps), torch.cuda.current_stream().cuda_stream)
+                 int(refine_steps), int(cluster),
+                 torch.cuda.current_stream().cuda_stream)
         _build.check(err, "spd_solve kernel launch")
         spd_solve.launches += 1
     return x if xd == od else x.to(od)
+
+
+def spd_solve_design(B: int, k: int, R: int, factor_dtype, operator_dtype,
+                     refine_steps: int, device=None) -> int:
+    """The design the launcher picks for a call on a CUDA device: 0 at
+    refine 0 (the row-block grid), 1 one CTA a lane, else the cluster
+    size."""
+    lib = _build.load_library()
+    sizes = [torch.empty((), dtype=d).element_size()
+             for d in (factor_dtype, operator_dtype)]
+    with torch.cuda.device(device if device is not None else
+                           torch.cuda.current_device()):
+        c = lib.mt_spd_solve_design(B, k, R, *sizes, int(refine_steps))
+    if c < 0:
+        _build.check(-c, "spd_solve device query")
+    return c
 
 
 def spd_solve(minv_s, m_op, dinv, shift, r, refine_steps: int = 0,

@@ -9,15 +9,22 @@ Tolerances: K1 at 5e-5 (f32; the spec residual of tests/test_pallas_kkt.py)
 and 1e-12 (f64) relative to max|Minv|; K2 at 1e-5 (f32 factor, the
 spec of tests/test_pallas.py) and 1e-12 (f64) relative to max|x|.  The
 NL path's shapes (K1 at k=1024 f64, K2 at (64, 1024) f64 refine 3) are
-held to the f64 tolerances.
+held to the f64 tolerances.  Both kernels have a one-CTA design and a
+cluster design (several CTAs a lane); the cluster cases run each design
+the dispatch can pick and hold it to plain and, bit for bit, to the
+one-CTA design.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from minotaur_tpu_torch.ops.spd_inverse import spd_inverse, spd_inverse_plain
-from minotaur_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
+from minotaur_tpu_torch.ops.spd_inverse import (spd_inverse, spd_inverse_cuda,
+                                                spd_inverse_design,
+                                                spd_inverse_plain)
+from minotaur_tpu_torch.ops.spd_solve import (spd_solve, spd_solve_cuda,
+                                              spd_solve_design,
+                                              spd_solve_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -39,12 +46,13 @@ def spoil(M, defect):
     """Make lane 0 of M fail: "shift" (-6 I, fails at column 0), "late"
     (the diagonal entry of column 2*32+5, or the last one, set 0.5 below
     its Schur complement term, so the pivot there is -0.5 and the failure
-    comes after two panels of updates), "nan" (one NaN pair), or "none"."""
+    comes after two panels of updates), "end" (the same at column k - 40,
+    in one of the last panels), "nan" (one NaN pair), or "none"."""
     k = M.shape[-1]
     if defect == "shift":
         M[0] -= 6.0 * np.eye(k, dtype=M.dtype)
-    elif defect == "late":
-        j = min(2 * 32 + 5, k - 1)
+    elif defect in ("late", "end"):
+        j = min(2 * 32 + 5, k - 1) if defect == "late" else max(k - 40, 0)
         a = M[0].astype(np.float64)
         s = a[j, :j] @ np.linalg.solve(a[:j, :j], a[:j, j]) if j else 0.0
         M[0, j, j] = s - 0.5
@@ -180,3 +188,103 @@ def test_wrappers_raise_on_unsupported_input(cuda):
                   torch.zeros(1, 3, 3, device=cuda),
                   torch.ones(1, 3, device=cuda), torch.zeros(1, 3, device=cuda),
                   torch.ones(1, 3, device=cuda))
+
+
+# the cluster sizes each dispatch can pick (csrc/*.cu: kMaxClusterA,
+# kMaxClusterS), after one CTA a lane (1), the reference of the bits
+K1_DESIGNS = (1, 2, 4)
+K2_DESIGNS = (1, 2, 4)
+
+
+def _spd_dev(cuda, B, k, seed, dtype, defect):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    A = torch.randn((B, k, k), generator=g, dtype=F64, device=cuda)
+    M = A @ A.transpose(1, 2) / k + 2.0 * torch.eye(k, dtype=F64, device=cuda)
+    del A
+    if defect != "none":
+        m0 = M[0].cpu().numpy()[None].copy()
+        M[0] = torch.as_tensor(spoil(m0, defect)[0], device=cuda)
+    return M.to(dtype).contiguous()
+
+
+# the partition shape, the NL shape, a failure in one of the last panels at
+# the glob order, and a NaN at a ragged order
+@pytest.mark.parametrize("B,k,defect,dtype", [
+    (16, 1024, "none", F32), (64, 1024, "none", F64), (4, 1378, "end", F32),
+    (2, 1025, "nan", F64)])
+def test_spd_inverse_cluster_design(cuda, B, k, defect, dtype):
+    ms = _spd_dev(cuda, B, k, 31 * k + B, dtype, defect)
+    pminv, pflag = spd_inverse_plain(ms)
+    tol = 5e-5 if dtype == F32 else 1e-12
+    assert spd_inverse_design(B, k) in K1_DESIGNS[1:]
+    ref = None
+    for C in K1_DESIGNS:
+        n0 = spd_inverse.launches
+        minv, flag = spd_inverse_cuda(ms, C)
+        torch.cuda.synchronize()
+        assert spd_inverse.launches == n0 + 1
+        assert torch.equal(flag, pflag)
+        assert flag[0].item() == (0.0 if defect == "none" else 2.0)
+        assert (minv - pminv).abs().max() <= tol * pminv.abs().max()
+        if defect != "none":
+            assert torch.equal(minv[0], torch.eye(k, dtype=dtype, device=cuda))
+        if ref is None:
+            ref = minv
+        assert torch.equal(minv, ref)
+
+
+@pytest.mark.parametrize("fdt", [F32, F64])
+@pytest.mark.parametrize("steps", [1, 2, 3])
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("B,k", [(16, 1024), (64, 1378)])
+def test_spd_solve_cluster_design(cuda, B, k, R, steps, fdt):
+    M, dinv, shift, minv32, minv64 = _solve_setup(cuda, B, k)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    r = torch.randn((B, k, R), generator=g, dtype=F64, device=cuda)
+    args = (minv32 if fdt == F32 else minv64, M.to(fdt), dinv.to(fdt),
+            shift.to(fdt), r[:, :, 0] if R == 1 else r, steps, F64)
+    px = spd_solve_plain(*args)
+    tol = 1e-5 if fdt == F32 else 1e-12
+    ref = None
+    for C in K2_DESIGNS:
+        n0 = spd_solve.launches
+        x = spd_solve_cuda(*args, cluster=C)
+        torch.cuda.synchronize()
+        assert spd_solve.launches == n0 + 1
+        assert (x - px).abs().max() <= tol * px.abs().max()
+        if ref is None:
+            ref = x
+        assert torch.equal(x, ref)
+
+
+def test_designs_at_the_table_shapes(cuda):
+    """The dispatch's picks at the shapes the port's paths give the
+    kernels: the main path's (64, 300) keeps one CTA a lane (and K2's
+    refine-0 grid), the wide lanes and short batches take clusters, K2's
+    at k = 1378 in f32 through its pair loads; at an odd k in f32 K2
+    keeps one CTA.  The thresholds: K1 from k = 384, K2 from k = 256."""
+    assert spd_inverse_design(64, 300) == 1
+    assert spd_inverse_design(64, 1024) == 2
+    assert spd_inverse_design(64, 1378) == 2
+    assert spd_inverse_design(16, 1024) == 4
+    assert spd_solve_design(64, 300, 1, F32, F32, 0) == 0
+    assert spd_solve_design(16, 1024, 1, F32, F32, 2) == 4
+    assert spd_solve_design(64, 1024, 1, F32, F32, 2) == 2
+    assert spd_solve_design(64, 1024, 1, F64, F64, 3) == 2
+    assert spd_solve_design(64, 1378, 1, F32, F32, 2) == 2
+    assert spd_solve_design(64, 1377, 1, F32, F32, 2) == 1
+    assert spd_inverse_design(64, 383) == 1
+    assert spd_inverse_design(64, 384) == 2
+    assert spd_solve_design(64, 255, 1, F64, F64, 3) == 1
+    assert spd_solve_design(64, 256, 1, F32, F32, 2) == 2
+
+
+def test_wrappers_refuse_a_cluster_size_out_of_range(cuda):
+    """Only the launchers' own picks (0, 1, 2, 4) are accepted."""
+    ms = torch.eye(4, device=cuda)[None].contiguous()
+    z = torch.zeros(1, 4, device=cuda)
+    for c in (-1, 3, 8, 16):
+        with pytest.raises(ValueError):
+            spd_inverse_cuda(ms, c)
+        with pytest.raises(ValueError):
+            spd_solve_cuda(ms, ms, z + 1, z, z + 1, 1, cluster=c)

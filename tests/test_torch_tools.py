@@ -63,3 +63,34 @@ def test_ipm_routes_agree_on_the_cpu():
     assert all((lo[b] == hi[b]).any() for b in range(1, 4))
     assert route_statuses(12, 4, device="cpu") == {
         "kernel/kernel": [], "kernel/plain": [], "plain/kernel": []}
+
+
+def test_ipm_routes_batch_option_prints_a_line_a_route(capsys):
+    """`--batch` names the batch in every line; on CPU tensors no route
+    moves a lane's status or iteration count."""
+    import json
+    from minotaur_tpu_torch.tools.ipm_routes import main
+    assert main(["--batch", "phase5", "--n", "12", "--lanes", "4",
+                 "--device", "cpu"]) == 0
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert [d["route (K1/K2)"] for d in lines] == [
+        "kernel/kernel", "kernel/plain", "plain/kernel"]
+    assert all(d["batch"] == "phase5" and d["lanes_differing_from_plain"]
+               == [] for d in lines)
+
+
+def test_ipm_routes_seeded_fixings_match_phase_7():
+    """The NL batch's boxes: the root box, then 1-39 variables fixed to an
+    integer below `top` in each other lane, from the seed."""
+    import numpy as np
+    from types import SimpleNamespace as NS
+    from minotaur_tpu_torch.tools.ipm_routes import _seeded_fixings
+    sp = NS(n=50, vlb=np.zeros(50), vub=np.full(50, 3.0))
+    lo, hi = _seeded_fixings(sp, 6, 4)
+    assert np.array_equal(lo[0], sp.vlb) and np.array_equal(hi[0], sp.vub)
+    for b in range(1, 6):
+        fixed = lo[b] == hi[b]
+        assert 1 <= fixed.sum() <= 39
+        assert set(np.unique(lo[b][fixed])) <= {0.0, 1.0, 2.0, 3.0}
+    lo2, _ = _seeded_fixings(sp, 6, 4)
+    assert np.array_equal(lo, lo2)
