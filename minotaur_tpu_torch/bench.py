@@ -135,11 +135,12 @@ def run(problem=None, *, optimum: Optional[float] = None,
         f"batches={bab.stats.batches} rebalances={bab.stats.rebalances} "
         f"total_wall={time.monotonic() - t_start:.1f}s; stopped by "
         f"{stopped_by} (node limit {node_limit}, time limit {time_limit} s)")
-    # NOTE: dispatch/fetch windows OVERLAP host work under the pipelined
-    # loop, so these are occupancy accumulators (can exceed 100% of
-    # wall), not an additive profile
-    log(f"bench: phase occupancy device={bab.stats.t_device:.1f}s "
-        f"host={bab.stats.t_host:.1f}s of {dt:.1f}s wall (overlapped)")
+    # t_device sums each batch's wall from its preparation to its fetch
+    # (host dispatch included; under the pipelined loop the windows
+    # overlap, so it can exceed the wall), t_host the host bookkeeping
+    log(f"bench: dispatch-to-fetch wall={bab.stats.t_device:.1f}s "
+        f"host bookkeeping={bab.stats.t_host:.1f}s of {dt:.1f}s wall "
+        f"(overlapped)")
     # every IPM iteration is one batched KKT factorization; each issues
     # 3 + affine_rounds + tail_kkt_rounds direction solves of it
     kkt_facts = bab.stats.ipm_iters

@@ -36,6 +36,12 @@ Soundness argument:
   returning a wrong answer;
 - anything unresolved (unconverged + no branching candidate) caps
   `unresolved_lb` exactly like the host path.
+
+Spans (utils/trace.py): `pool.call` around each `multiround` call,
+`pool.round` around each round in it, `pool.sync` around the
+host's read of the round condition, `pool.summary` around the host
+bookkeeping of a summary (count `processed`), `pool.spill` around a
+congestion drain to the host tree (count `spilled`).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import numpy as np
 import torch
 
 from ..device import F32, F64
+from ..utils import trace
 from ..utils.types import EngineStatus
 from .node import Node
 from .step import build_node_step_unjitted
@@ -415,32 +422,37 @@ class DevicePoolRunner:
             pool lb, best_val, devrisk, unres_lb, unres_cnt, processed,
             created, pruned_bound, pruned_infeas, iters], then best_x,
             heur_x, pc_su, pc_cu, pc_sd, pc_cd (n each)."""
-            used = state[10][:C]
-            scal = state[17]
-            # per-call counters: the scal block accumulates WITHIN one
-            # multiround call and the host adds the deltas at each sync
-            scal[0] = INF
-            scal[1:] = 0.0
-            full = lambda v: torch.full((), v, dtype=F64,  # noqa: E731
-                                        device=dev)
-            devrisk, hval = full(INF), full(INF)
-            hx = torch.zeros(n, dtype=F64, device=dev)
-            rounds = 0
-            # the loop condition (r < T) & used.any() & (free >= 2B) is
-            # read on the host, once a round
-            while rounds < T and bool(used.any() &
-                                      (C - used.sum() >= 2 * B)):
-                devrisk, hval, hx = one_round(A, clb, cub, cutoff_host,
-                                              state, devrisk, hval, hx)
-                rounds += 1
-            lbmin = torch.where(used, state[4][:C], INF).amin()
-            summary = torch.cat([
-                torch.stack([
-                    full(rounds), used.sum().to(F64), lbmin, state[15],
-                    devrisk, scal[0], scal[1], scal[2], scal[3], scal[4],
-                    scal[5], scal[7]]),
-                state[16], hx, state[11], state[12], state[13], state[14]])
-            return state, summary
+            with trace.span("pool.call"):
+                used = state[10][:C]
+                scal = state[17]
+                # per-call counters: the scal block accumulates WITHIN one
+                # multiround call and the host adds the deltas at each sync
+                scal[0] = INF
+                scal[1:] = 0.0
+                full = lambda v: torch.full((), v, dtype=F64,  # noqa: E731
+                                            device=dev)
+                devrisk, hval = full(INF), full(INF)
+                hx = torch.zeros(n, dtype=F64, device=dev)
+                rounds = 0
+                # the loop condition (r < T) & used.any() & (free >= 2B) is
+                # read on the host, once a round
+                while rounds < T:
+                    with trace.span("pool.sync"):
+                        go = bool(used.any() & (C - used.sum() >= 2 * B))
+                    if not go:
+                        break
+                    with trace.span("pool.round"):
+                        devrisk, hval, hx = one_round(A, clb, cub, cutoff_host,
+                                                      state, devrisk, hval, hx)
+                    rounds += 1
+                lbmin = torch.where(used, state[4][:C], INF).amin()
+                summary = torch.cat([
+                    torch.stack([
+                        full(rounds), used.sum().to(F64), lbmin, state[15],
+                        devrisk, scal[0], scal[1], scal[2], scal[3], scal[4],
+                        scal[5], scal[7]]),
+                    state[16], hx, state[11], state[12], state[13], state[14]])
+                return state, summary
 
         def pack_pool(state):
             (vlb, vub, wx, wy, lb, depth, bvar, bdir, bfrac, pit,
@@ -583,7 +595,9 @@ class DevicePoolRunner:
             if info["rounds"] < T and C - info["pool_used"] < 2 * B:
                 # congestion: spill the worst half to the host tree and
                 # keep diving on the best half
-                kept = self._drain_to_host(state, keep=C // 2)
+                with trace.span("pool.spill"):
+                    kept = self._drain_to_host(state, keep=C // 2)
+                    trace.count("spilled", info["pool_used"] - len(kept))
                 bab.stats.rebalances += 1
                 if not kept:
                     return
@@ -594,74 +608,76 @@ class DevicePoolRunner:
         """All host bookkeeping for one multiround summary: stats,
         pseudocost sync, incumbent verification, rounding heuristic,
         global lb, progress log."""
-        bab = self.bab
-        n = self._n
-        bab.stats.t_device += time.monotonic() - t_disp
-        t_h0 = time.monotonic()
-        (rounds, pool_used, pool_lb, best_val, devrisk, unres_lb,
-         unres_cnt, processed, created, pr_bnd, pr_inf,
-         iters) = summ[:12]
-        best_x = summ[12:12 + n]
-        heur_x = summ[12 + n:12 + 2 * n]
-        o = 12 + 2 * n
-        pc_su = summ[o:o + n]
-        pc_cu = summ[o + n:o + 2 * n]
-        pc_sd = summ[o + 2 * n:o + 3 * n]
-        pc_cd = summ[o + 3 * n:o + 4 * n]
-        self.calls += 1
-        self.rounds += int(rounds)
-        self.processed += int(processed)
-        bab.stats.batches += 1
-        bab.stats.solves += int(processed)
-        bab.stats.ipm_iters += int(iters)
-        bab.tm.nodes_processed += int(processed)
-        bab.tm.nodes_created += int(created)
-        bab.stats.nodes_processed = bab.tm.nodes_processed
-        bab.stats.nodes_created = bab.tm.nodes_created
-        bab.stats.unresolved += int(unres_cnt)
-        bab.unresolved_lb = min(bab.unresolved_lb, float(unres_lb))
-        # host pc arrays track the device values (avg = sum/count)
-        with np.errstate(invalid="ignore"):
-            bab._pc_up = np.where(pc_cu > 0, pc_su /
-                                  np.maximum(pc_cu, 1), 0.0)
-            bab._pc_down = np.where(pc_cd > 0, pc_sd /
-                                    np.maximum(pc_cd, 1), 0.0)
-        bab._pc_up_cnt = pc_cu.astype(np.int64)
-        bab._pc_down_cnt = pc_cd.astype(np.int64)
-        # candidate verification on the TRUE problem (sync boundary)
-        if np.isfinite(best_val) and best_val < bab.ub - 1e-12:
-            xb = best_x[:bab.problem.n_vars]
-            if bab.problem.is_feasible(
-                    xb, atol=max(bab._feas_atol, 1e-5),
-                    int_tol=bab._int_tol,
-                    rtol=max(bab._feas_rtol, 1e-5)):
-                bab._accept_incumbent(
-                    xb.copy(), float(bab.problem.eval_objective(xb)))
-            else:
-                # cannot happen for staged-1:1 LP/QP models (device
-                # test is 2x stricter); forfeit optimality soundly
-                self._log.info(
-                    "device incumbent REJECTED by host verification"
-                    " — capping lb at devrisk (sound fallback)")
-                bab.unresolved_lb = min(bab.unresolved_lb,
-                                        float(devrisk))
-        # host-side rounding on the best relaxation point of the call
-        if bab.sp.int_mask.any() and np.all(np.isfinite(heur_x)):
-            bab._try_round_incumbent(heur_x, bab.sp.vlb, bab.sp.vub)
-        # global lb across pool + host tree + unresolved cap
-        open_lb = min(float(pool_lb), bab.tm.best_lb(),
-                      bab.unresolved_lb)
-        bab.lb = min(open_lb, bab.ub)
-        bab.stats.t_host += time.monotonic() - t_h0
+        with trace.span("pool.summary"):
+            bab = self.bab
+            n = self._n
+            bab.stats.t_device += time.monotonic() - t_disp
+            t_h0 = time.monotonic()
+            (rounds, pool_used, pool_lb, best_val, devrisk, unres_lb,
+             unres_cnt, processed, created, pr_bnd, pr_inf,
+             iters) = summ[:12]
+            best_x = summ[12:12 + n]
+            heur_x = summ[12 + n:12 + 2 * n]
+            o = 12 + 2 * n
+            pc_su = summ[o:o + n]
+            pc_cu = summ[o + n:o + 2 * n]
+            pc_sd = summ[o + 2 * n:o + 3 * n]
+            pc_cd = summ[o + 3 * n:o + 4 * n]
+            self.calls += 1
+            self.rounds += int(rounds)
+            self.processed += int(processed)
+            trace.count("processed", int(processed))
+            bab.stats.batches += 1
+            bab.stats.solves += int(processed)
+            bab.stats.ipm_iters += int(iters)
+            bab.tm.nodes_processed += int(processed)
+            bab.tm.nodes_created += int(created)
+            bab.stats.nodes_processed = bab.tm.nodes_processed
+            bab.stats.nodes_created = bab.tm.nodes_created
+            bab.stats.unresolved += int(unres_cnt)
+            bab.unresolved_lb = min(bab.unresolved_lb, float(unres_lb))
+            # host pc arrays track the device values (avg = sum/count)
+            with np.errstate(invalid="ignore"):
+                bab._pc_up = np.where(pc_cu > 0, pc_su /
+                                      np.maximum(pc_cu, 1), 0.0)
+                bab._pc_down = np.where(pc_cd > 0, pc_sd /
+                                        np.maximum(pc_cd, 1), 0.0)
+            bab._pc_up_cnt = pc_cu.astype(np.int64)
+            bab._pc_down_cnt = pc_cd.astype(np.int64)
+            # candidate verification on the TRUE problem (sync boundary)
+            if np.isfinite(best_val) and best_val < bab.ub - 1e-12:
+                xb = best_x[:bab.problem.n_vars]
+                if bab.problem.is_feasible(
+                        xb, atol=max(bab._feas_atol, 1e-5),
+                        int_tol=bab._int_tol,
+                        rtol=max(bab._feas_rtol, 1e-5)):
+                    bab._accept_incumbent(
+                        xb.copy(), float(bab.problem.eval_objective(xb)))
+                else:
+                    # cannot happen for staged-1:1 LP/QP models (device
+                    # test is 2x stricter); forfeit optimality soundly
+                    self._log.info(
+                        "device incumbent REJECTED by host verification"
+                        " — capping lb at devrisk (sound fallback)")
+                    bab.unresolved_lb = min(bab.unresolved_lb,
+                                            float(devrisk))
+            # host-side rounding on the best relaxation point of the call
+            if bab.sp.int_mask.any() and np.all(np.isfinite(heur_x)):
+                bab._try_round_incumbent(heur_x, bab.sp.vlb, bab.sp.vub)
+            # global lb across pool + host tree + unresolved cap
+            open_lb = min(float(pool_lb), bab.tm.best_lb(),
+                          bab.unresolved_lb)
+            bab.lb = min(open_lb, bab.ub)
+            bab.stats.t_host += time.monotonic() - t_h0
 
-        now = time.monotonic()
-        if now - self._t_sync >= bab._log_interval:
-            self._t_sync = now
-            self._log.info(
-                f"  {now - t0:8.1f}s  nodes "
-                f"{bab.stats.nodes_processed:8d} "
-                f"pool {int(pool_used):5d} open {len(bab.tm):6d}  "
-                f"lb {bab.lb:.8g}  ub {bab.ub:.8g}  gap "
-                f"{bab._gap() * 100:.4g}%  [device rounds "
-                f"{int(rounds)}]")
-        return dict(rounds=int(rounds), pool_used=int(pool_used))
+            now = time.monotonic()
+            if now - self._t_sync >= bab._log_interval:
+                self._t_sync = now
+                self._log.info(
+                    f"  {now - t0:8.1f}s  nodes "
+                    f"{bab.stats.nodes_processed:8d} "
+                    f"pool {int(pool_used):5d} open {len(bab.tm):6d}  "
+                    f"lb {bab.lb:.8g}  ub {bab.ub:.8g}  gap "
+                    f"{bab._gap() * 100:.4g}%  [device rounds "
+                    f"{int(rounds)}]")
+            return dict(rounds=int(rounds), pool_used=int(pool_used))

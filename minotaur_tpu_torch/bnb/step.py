@@ -5,6 +5,10 @@ a whole batch of nodes, with the lane axis written out, and packs every
 output into ONE (B, 4n+m+10) float64 tensor whose column layout is
 bit-identical to the JAX package's `pack_step_result`, so the host loop
 reads both packages the same way.
+
+Spans (utils/trace.py): `step` around each `step_b` call,
+`step.fbbt` around its FBBT rounds, `step.fetch` around the one copy of
+the packed result to the host.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from ..device import F64, resolve_device
 from ..engines.ipm import IPMOptions, build_single_solver, to_device
 from ..engines.staging import StagedProblem
 from ..ops.interval import linear_fbbt, stage_fbbt, stage_interval
+from ..utils import trace
 from ..utils.types import EngineStatus
 
 
@@ -118,37 +123,43 @@ def build_node_step_unjitted(sp: StagedProblem,
     fbbt_round = build_fbbt_sweep(sp, opts.int_tol, dev)
 
     def step_b(A, clb, cub, vlb, vub, x0, y0=None):
-        B = vlb.shape[0]
-        infeas = torch.zeros(B, dtype=torch.bool, device=dev)
-        for _ in range(opts.fbbt_rounds):
-            vlb, vub, infeas = fbbt_round(A, clb, cub, vlb, vub, infeas)
-        # keep the box sane for the solver even if infeasible (masked later)
-        svlb = torch.where(vlb > vub, vub, vlb)
-        res = solve(A, clb, cub, svlb, vub, x0, y0)
+        with trace.span("step"):
+            B = vlb.shape[0]
+            infeas = torch.zeros(B, dtype=torch.bool, device=dev)
+            with trace.span("step.fbbt"):
+                for _ in range(opts.fbbt_rounds):
+                    vlb, vub, infeas = fbbt_round(A, clb, cub, vlb, vub,
+                                                  infeas)
+            # keep the box sane for the solver even if infeasible (masked
+            # later)
+            svlb = torch.where(vlb > vub, vub, vlb)
+            res = solve(A, clb, cub, svlb, vub, x0, y0)
 
-        if has_ints:
-            frac = torch.where(int_mask, (res.x - torch.round(res.x)).abs(),
-                               0.0)
-            max_frac = frac.amax(dim=1)
-            bvar = frac.argmax(dim=1)
-            int_feas = max_frac <= opts.int_tol
-            bvar = torch.where(int_feas, -1, bvar)
-        else:
-            frac = torch.zeros((B, n), dtype=F64, device=dev)
-            max_frac = torch.zeros(B, dtype=F64, device=dev)
-            bvar = torch.full((B,), -1, dtype=torch.long, device=dev)
-            int_feas = torch.ones(B, dtype=torch.bool, device=dev)
+            if has_ints:
+                frac = torch.where(int_mask,
+                                   (res.x - torch.round(res.x)).abs(), 0.0)
+                max_frac = frac.amax(dim=1)
+                bvar = frac.argmax(dim=1)
+                int_feas = max_frac <= opts.int_tol
+                bvar = torch.where(int_feas, -1, bvar)
+            else:
+                frac = torch.zeros((B, n), dtype=F64, device=dev)
+                max_frac = torch.zeros(B, dtype=F64, device=dev)
+                bvar = torch.full((B,), -1, dtype=torch.long, device=dev)
+                int_feas = torch.ones(B, dtype=torch.bool, device=dev)
 
-        status = torch.where(infeas, int(EngineStatus.SOLVED_INFEASIBLE),
-                             res.status)
-        db = torch.where(infeas, 1e20, res.dual_bound)
-        bval = torch.gather(res.x, 1, torch.clamp(bvar, min=0)[:, None])[:, 0]
-        return dict(
-            status=status, obj=res.obj, dual_bound=db, x=res.x,
-            int_feasible=int_feas & ~infeas, branch_var=bvar,
-            branch_val=bval, max_frac=max_frac, new_vlb=vlb, new_vub=vub,
-            fbbt_infeas=infeas, frac=frac, y=res.y, kkt_err=res.kkt_err,
-            iters=res.iters)
+            status = torch.where(infeas,
+                                 int(EngineStatus.SOLVED_INFEASIBLE),
+                                 res.status)
+            db = torch.where(infeas, 1e20, res.dual_bound)
+            bval = torch.gather(res.x, 1,
+                                torch.clamp(bvar, min=0)[:, None])[:, 0]
+            return dict(
+                status=status, obj=res.obj, dual_bound=db, x=res.x,
+                int_feasible=int_feas & ~infeas, branch_var=bvar,
+                branch_val=bval, max_frac=max_frac, new_vlb=vlb,
+                new_vub=vub, fbbt_infeas=infeas, frac=frac, y=res.y,
+                kkt_err=res.kkt_err, iters=res.iters)
 
     return step_b
 
@@ -203,7 +214,9 @@ def build_node_step(sp: StagedProblem, opts: StepOptions = StepOptions(),
         return pack_step_result(res)
 
     def unpack(packed) -> StepResult:
-        return unpack_step_result(packed.cpu().numpy(), n, m)
+        with trace.span("step.fetch"):
+            arr = packed.cpu().numpy()
+        return unpack_step_result(arr, n, m)
 
     def step(A, clb, cub, vlb_b, vub_b, x0_b, y0_b):
         return unpack(dispatch(A, clb, cub, vlb_b, vub_b, x0_b, y0_b))

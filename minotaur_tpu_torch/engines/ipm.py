@@ -14,8 +14,16 @@ by line; its docstrings explain the derivations.
 `vmap` of a `while_loop` keeps a finished lane's carry frozen while the
 other lanes iterate.  `_while` does the same with a per-lane `active`
 mask that gates every state update (iterate, k, best_*, stall, nu).  The
-host reads `active.any()` once per iteration, so each iteration costs
-one device-to-host sync.
+host reads the number of active lanes once per iteration, so each
+iteration costs one device-to-host sync.
+
+Spans (utils/trace.py): `ipm.solve` around each solve, with the counts
+`lanes`, `iters` (batched iterations) and `lane_iters` (active lanes
+summed over them); `ipm.iter` around each iteration of `_while` (the
+step and the read that follows it);
+`ipm.sync` around each blocking host read (the active-lane count and the
+Cholesky retry's two reads); `step.fetch` around the one copy of
+`build_batch_solver`'s packed result.
 
 Nonlinear rows or objective (`has_nl`) take the JAX package's NL branch:
 the gradient, the Jacobian of the nonlinear rows and the Hessian of the
@@ -55,6 +63,7 @@ from torch.func import grad, hessian, jacfwd, vmap
 from ..device import F32, F64, check_fp32_matmul, resolve_device
 from ..ops.spd_inverse import spd_inverse
 from ..ops.spd_solve import spd_solve
+from ..utils import trace
 from ..utils.types import EngineStatus
 from .staging import StagedProblem
 
@@ -140,6 +149,12 @@ def _sel_state(mask, a, b):
     return tuple(_sel(mask, x, y) for x, y in zip(a, b))
 
 
+def _active_lanes(active: torch.Tensor) -> int:
+    """The number of lanes still iterating: the loop's one host read."""
+    with trace.span("ipm.sync"):
+        return int(active.sum())
+
+
 def _make_spd_solver(M: torch.Tensor, opts: IPMOptions, use_f32=None,
                      out_dtype=None):
     """Batched SPD solve M x = r (M: (B, k, k)) through an explicit
@@ -183,8 +198,11 @@ def _make_spd_solver(M: torch.Tensor, opts: IPMOptions, use_f32=None,
         shift = torch.where(bad, torch.clamp(-gersh, min=1e-6) + 1e-6,
                             torch.zeros_like(gersh))
         bad2 = torch.zeros_like(bad)
-        if bool(bad.any()):
-            idx = torch.nonzero(bad).flatten()
+        with trace.span("ipm.sync"):
+            retry = bool(bad.any())
+        if retry:
+            with trace.span("ipm.sync"):
+                idx = torch.nonzero(bad).flatten()
             eye = torch.eye(k, dtype=Ms.dtype, device=Ms.device)
             Ms2 = Ms[idx] + (shift[idx] + 1e-7)[:, None, None] * eye
             Minv2, flag2 = spd_inverse(Ms2.contiguous())
@@ -345,6 +363,10 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
         return W
 
     def solve_impl(A, clb, cub, vlb, vub, x0, c_in, y0=None):
+        with trace.span("ipm.solve", lanes=vlb.shape[0]):
+            return _solve(A, clb, cub, vlb, vub, x0, c_in, y0)
+
+    def _solve(A, clb, cub, vlb, vub, x0, c_in, y0):
         B = vlb.shape[0]
         c_in = c_in.expand(B, n) if c_in.dim() == 1 else c_in
         lz = torch.cat([vlb, clb.expand(B, m)], dim=1)
@@ -975,12 +997,19 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
 
         def _while(cond, step, state):
             # batched while_loop: lanes whose condition is false keep
-            # their whole state (vmap-of-while_loop semantics)
-            while True:
-                active = cond(state)
-                if not bool(active.any()):
-                    return state
-                state = _sel_state(active, step(state), state)
+            # their whole state (vmap-of-while_loop semantics); the host
+            # reads the number of active lanes once an iteration
+            active = cond(state)
+            n_active = _active_lanes(active)
+            while n_active:
+                with trace.span("ipm.iter"):
+                    state = _sel_state(active, step(state), state)
+                    active = cond(state)
+                    n_next = _active_lanes(active)
+                trace.count("iters", 1)
+                trace.count("lane_iters", n_active)
+                n_active = n_next
+            return state
 
         def cond_to(tol_target, k_cap):
             def cond(state):
@@ -1165,7 +1194,8 @@ def build_batch_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
 
     def _unpack(arr) -> IPMResult:
         if isinstance(arr, torch.Tensor):
-            arr = arr.cpu().numpy()
+            with trace.span("step.fetch"):
+                arr = arr.cpu().numpy()
         arr = np.asarray(arr)
         return IPMResult(
             x=arr[:, :n], y=arr[:, n:n + m],

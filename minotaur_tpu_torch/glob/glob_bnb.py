@@ -10,6 +10,10 @@ Reference: Glob.{h,cpp} createBab_ (:134) — B&B over the McCormick/secant
 LP relaxation with spatial + integrality branching, node FBBT and
 envelope refresh (the reference mutates SecantMods; we recompute
 envelopes from the box inside the step).
+
+Spans (utils/trace.py): `glob.prepare` around a batch's pop, pad and
+stack, `glob.handle` around its host bookkeeping,
+`glob.polish` around each fix-int polish.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ..bnb.tree import TreeManager
 from ..device import resolve_device
 from ..engines.ipm import IPMOptions
 from ..ir.problem import Problem
+from ..utils import trace
 from ..utils.environment import Environment
 from ..utils.types import EngineStatus, NodeStatus, SolveStatus, \
     TreeSearchOrder
@@ -235,53 +240,57 @@ class GlobBranchAndBound:
             if time.monotonic() - t0 > self._time_limit:
                 self.status = SolveStatus.SOLVED_TIME_LIMIT
                 break
-            self.tm.set_cutoff(self._cutoff())
-            batch = self.tm.pop_batch(self._batch)
-            if not batch:
-                break
-            B = len(batch)
-            bucket = 1
-            while bucket < B:
-                bucket *= 4
-            bucket = min(bucket, self._batch)
-            while B < bucket:
-                batch.append(batch[0])
-                B += 1
-            vlb_b = np.stack([nd.vlb for nd in batch])
-            vub_b = np.stack([nd.vub for nd in batch])
-            x0_b = np.stack([nd.warm_x if nd.warm_x is not None
-                             else np.zeros(nz) for nd in batch])
+            with trace.span("glob.prepare"):
+                self.tm.set_cutoff(self._cutoff())
+                batch = self.tm.pop_batch(self._batch)
+                if not batch:
+                    break
+                B = len(batch)
+                bucket = 1
+                while bucket < B:
+                    bucket *= 4
+                bucket = min(bucket, self._batch)
+                while B < bucket:
+                    batch.append(batch[0])
+                    B += 1
+                vlb_b = np.stack([nd.vlb for nd in batch])
+                vub_b = np.stack([nd.vub for nd in batch])
+                x0_b = np.stack([nd.warm_x if nd.warm_x is not None
+                                 else np.zeros(nz) for nd in batch])
             res = self._step(vlb_b, vub_b, x0_b)
             self.nodes_processed += len(set(id(nd) for nd in batch))
             self._steps_done += 1
             if self._steps_done % self._polish_period == 1 or \
                     self.ub >= _INF:
-                self._fixint_polish(np.asarray(res.x))
+                with trace.span("glob.polish"):
+                    self._fixint_polish(np.asarray(res.x))
 
-            status = np.asarray(res.status)
-            obj = np.asarray(res.obj)
-            db = np.asarray(res.dual_bound)
-            xs = np.asarray(res.x)
-            int_ok = np.asarray(res.int_feasible)
-            term_ok = np.asarray(res.term_feasible)
-            bvar = np.asarray(res.branch_var)
-            bval = np.asarray(res.branch_val)
-            spat = np.asarray(res.is_spatial)
-            nvlb = np.asarray(res.new_vlb)
-            nvub = np.asarray(res.new_vub)
+            with trace.span("glob.handle"):
+                status = np.asarray(res.status)
+                obj = np.asarray(res.obj)
+                db = np.asarray(res.dual_bound)
+                xs = np.asarray(res.x)
+                int_ok = np.asarray(res.int_feasible)
+                term_ok = np.asarray(res.term_feasible)
+                bvar = np.asarray(res.branch_var)
+                bval = np.asarray(res.branch_val)
+                spat = np.asarray(res.is_spatial)
+                nvlb = np.asarray(res.new_vlb)
+                nvub = np.asarray(res.new_vub)
 
-            seen = set()
-            for i, node in enumerate(batch):
-                if id(node) in seen:
-                    continue
-                seen.add(id(node))
-                next_id = self._process(
-                    node, status[i], obj[i], db[i], xs[i], bool(int_ok[i]),
-                    bool(term_ok[i]), int(bvar[i]), float(bval[i]),
-                    bool(spat[i]), nvlb[i], nvub[i], next_id)
+                seen = set()
+                for i, node in enumerate(batch):
+                    if id(node) in seen:
+                        continue
+                    seen.add(id(node))
+                    next_id = self._process(
+                        node, status[i], obj[i], db[i], xs[i],
+                        bool(int_ok[i]), bool(term_ok[i]), int(bvar[i]),
+                        float(bval[i]), bool(spat[i]), nvlb[i], nvub[i],
+                        next_id)
 
-            open_lb = min(self.tm.best_lb(), self.unresolved_lb)
-            self.lb = min(open_lb, self.ub)
+                open_lb = min(self.tm.best_lb(), self.unresolved_lb)
+                self.lb = min(open_lb, self.ub)
             now = time.monotonic()
             if now - last_log >= self._log_interval:
                 last_log = now

@@ -26,6 +26,11 @@ functions regain full envelopes after one branch at their inflection.
 Each row builder writes its block of the (B, m, nz) matrix in place and
 returns the block's row ranges, so one step holds one dense per-lane
 matrix, not one per block plus their concatenation.
+
+Spans (utils/trace.py): `step` around each `step_b` call,
+`step.fbbt` around its FBBT rounds, `step.rows` around the lanes'
+envelope rows (`relaxation`), `step.fetch` around the one copy of the
+packed result to the host.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from ..device import F64, resolve_device
 from ..engines.ipm import IPMOptions, build_single_solver, to_device
 from ..engines.staging import StagedProblem
 from ..ops.interval import _TorchNP, _idiv, _imul, linear_fbbt
+from ..utils import trace
 from ..utils.types import EngineStatus
 from .transformer import GlobStaged
 from .univariate import CONVEX, NOENV, make_uni_fns, term_meta
@@ -547,20 +553,25 @@ def build_glob_step(gs: GlobStaged, opts: GlobStepOptions = GlobStepOptions(),
         return int_ok, term_ok, bvar, bval, is_spatial
 
     def step_b(vlb, vub, x0):
-        vlb, vub, infeas = fbbt_rounds(vlb, vub)
-        A, clb, cub = relaxation(vlb, vub)
-        svlb = torch.where(vlb > vub, vub, vlb)
-        res = solve_one(A, clb, cub, svlb, vub, x0)
-        del A
-        int_ok, term_ok, bvar, bval, is_spatial = branching(res.x, vlb, vub)
-        status = torch.where(
-            infeas, int(EngineStatus.SOLVED_INFEASIBLE), res.status)
-        db = torch.where(infeas, _BIG, res.dual_bound)
-        return dict(
-            status=status, obj=res.obj, dual_bound=db, x=res.x,
-            int_feasible=int_ok & ~infeas, term_feasible=term_ok & ~infeas,
-            branch_var=bvar, branch_val=bval, is_spatial=is_spatial,
-            new_vlb=vlb, new_vub=vub, fbbt_infeas=infeas)
+        with trace.span("step"):
+            with trace.span("step.fbbt"):
+                vlb, vub, infeas = fbbt_rounds(vlb, vub)
+            with trace.span("step.rows"):
+                A, clb, cub = relaxation(vlb, vub)
+            svlb = torch.where(vlb > vub, vub, vlb)
+            res = solve_one(A, clb, cub, svlb, vub, x0)
+            del A
+            int_ok, term_ok, bvar, bval, is_spatial = branching(res.x, vlb,
+                                                                vub)
+            status = torch.where(
+                infeas, int(EngineStatus.SOLVED_INFEASIBLE), res.status)
+            db = torch.where(infeas, _BIG, res.dual_bound)
+            return dict(
+                status=status, obj=res.obj, dual_bound=db, x=res.x,
+                int_feasible=int_ok & ~infeas,
+                term_feasible=term_ok & ~infeas, branch_var=bvar,
+                branch_val=bval, is_spatial=is_spatial, new_vlb=vlb,
+                new_vub=vub, fbbt_infeas=infeas)
 
     def dispatch(vlb_b, vub_b, x0_b):
         r = step_b(to_device(vlb_b, dev), to_device(vub_b, dev),
@@ -570,7 +581,8 @@ def build_glob_step(gs: GlobStaged, opts: GlobStepOptions = GlobStepOptions(),
                           r["x"], r["new_vlb"], r["new_vub"]], dim=1)
 
     def unpack(packed) -> GlobStepResult:
-        a = packed.cpu().numpy()
+        with trace.span("step.fetch"):
+            a = packed.cpu().numpy()
         s = {k: a[:, i] for i, k in enumerate(_SCALARS)}
         o = len(_SCALARS)
         return GlobStepResult(

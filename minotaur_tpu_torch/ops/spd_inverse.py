@@ -11,6 +11,7 @@ inverse), in which case the lane's `minv` is the identity.
 plain PyTorch version `spd_inverse_plain`; a CUDA tensor goes to the CUDA
 kernel `csrc/spd_inverse.cuh` (float32 or float64 instantiation) and
 nothing else.  `spd_inverse.launches` counts calls that launched it.
+Each call is a `k1` span (utils/trace.py).
 
 The kernel is three launches on the current stream.  A: the blocked
 right-looking Cholesky with 32-column panels, with the forward
@@ -41,6 +42,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 _MAX_K = 16384
@@ -136,12 +138,13 @@ def spd_inverse_design(B: int, k: int, device=None) -> int:
 
 def spd_inverse(ms: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, k, k) SPD -> (Minv (B, k, k), flag (B,)), same dtype as `ms`."""
-    if ms.device.type == "cuda":
-        return spd_inverse_cuda(ms)
-    if ms.device.type != "cpu":
-        raise ValueError(f"spd_inverse: unsupported device {ms.device}")
-    _check(ms)
-    return spd_inverse_plain(ms)
+    with trace.span("k1"):
+        if ms.device.type == "cuda":
+            return spd_inverse_cuda(ms)
+        if ms.device.type != "cpu":
+            raise ValueError(f"spd_inverse: unsupported device {ms.device}")
+        _check(ms)
+        return spd_inverse_plain(ms)
 
 
 spd_inverse.launches = 0

@@ -32,6 +32,8 @@ cluster that cannot be placed raises; nothing falls back.  Float64 `r`
 and a float64 result are read and written by the kernel itself, so the
 IPM's mixed policy (float32 operator, float64 vectors) runs no cast
 kernels around the call.
+
+Each call is a `k2` span (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 # (factor, operator) dtype pairs with a kernel; r and x may each be in the
@@ -180,14 +183,16 @@ def spd_solve_design(B: int, k: int, R: int, factor_dtype, operator_dtype,
 def spd_solve(minv_s, m_op, dinv, shift, r, refine_steps: int = 0,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Solve M x = r for every lane through the scaled explicit inverse."""
-    if minv_s.device.type == "cuda":
-        return spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps,
-                              out_dtype)
-    if minv_s.device.type != "cpu":
-        raise ValueError(f"spd_solve: unsupported device {minv_s.device}")
-    _shapes(minv_s, m_op, dinv, shift, r)
-    return spd_solve_plain(minv_s, m_op, dinv, shift, r, refine_steps,
-                           out_dtype)
+    with trace.span("k2"):
+        if minv_s.device.type == "cuda":
+            return spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps,
+                                  out_dtype)
+        if minv_s.device.type != "cpu":
+            raise ValueError(
+                f"spd_solve: unsupported device {minv_s.device}")
+        _shapes(minv_s, m_op, dinv, shift, r)
+        return spd_solve_plain(minv_s, m_op, dinv, shift, r, refine_steps,
+                               out_dtype)
 
 
 spd_solve.launches = 0
