@@ -12,18 +12,28 @@ drive, the certificates and the status machine follow the JAX code line
 by line; its docstrings explain the derivations.
 
 `vmap` of a `while_loop` keeps a finished lane's carry frozen while the
-other lanes iterate.  `_while` does the same with a per-lane `active`
-mask that gates every state update (iterate, k, best_*, stall, nu).  The
-host reads the number of active lanes once per iteration, so each
-iteration costs one device-to-host sync.
+other lanes iterate.  `_Eager.loop` does the same with a per-lane
+`active` mask that gates every state update (iterate, k, best_*, stall,
+nu).  The host reads the number of active lanes once per iteration, so
+each iteration costs one device-to-host sync.
+
+A shared-operator LP/QP solve on a CUDA device replays a tape of CUDA
+graphs (`_Tape`) from its key's second solve on (the key: the inputs'
+shapes and dtypes, with or without a dual start; the solver's options fix
+the step variants).  The graphs hold the code between the islands, which
+run eagerly: each K1 call with its failed-lane read and retry, each K2
+call, and each loop's active-lane read.  So the same kernels run on the
+same data in the same order, and the host dispatches each iteration's
+elementwise ops as a few graph launches.  Per-lane operators (each
+iteration device-bound) and the NL path stay eager.
 
 Spans (utils/trace.py): `ipm.solve` around each solve, with the counts
-`lanes`, `iters` (batched iterations) and `lane_iters` (active lanes
-summed over them); `ipm.iter` around each iteration of `_while` (the
-step and the read that follows it);
-`ipm.sync` around each blocking host read (the active-lane count and the
-Cholesky retry's two reads); `step.fetch` around the one copy of
-`build_batch_solver`'s packed result.
+`lanes`, `iters` (batched iterations), `lane_iters` (active lanes summed
+over them) and `replayed` (iterations replayed from a tape's recorded
+body); `ipm.iter` around each iteration (the step and the read that
+follows it); `ipm.sync` around each blocking host read (the active-lane
+count and the Cholesky retry's two reads); `step.fetch` around the one
+copy of `build_batch_solver`'s packed result.
 
 Nonlinear rows or objective (`has_nl`) take the JAX package's NL branch:
 the gradient, the Jacobian of the nonlinear rows and the Hessian of the
@@ -53,7 +63,11 @@ the JAX CPU backend that flag is inert too).
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import gc
+import weakref
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -149,18 +163,357 @@ def _sel_state(mask, a, b):
     return tuple(_sel(mask, x, y) for x, y in zip(a, b))
 
 
-def _active_lanes(active: torch.Tensor) -> int:
-    """The number of lanes still iterating: the loop's one host read."""
+def _read(count: torch.Tensor) -> int:
+    """A loop's one host read: the number of lanes still iterating."""
     with trace.span("ipm.sync"):
-        return int(active.sum())
+        return int(count)
+
+
+# ---------------------------------------------------------------------------
+# Islands: the calls of a solve that run eagerly between its graph segments
+# (see _Tape).  An island keeps the tensors it reads; its outputs keep the
+# addresses of its first run, so that a segment captured after it reads each
+# later run's values.
+# ---------------------------------------------------------------------------
+
+def _keep(isl, name: str, t: torch.Tensor) -> None:
+    old = getattr(isl, name)
+    if old is None:
+        setattr(isl, name, t)
+    else:
+        old.copy_(t)
+
+
+class _Factor:
+    """K1 on the scaled matrix `Ms`.  With `shift` (B,), the lanes whose
+    factorization failed are read on the host and factorized again with
+    their Gershgorin shift on the diagonal; `bad2` flags those that failed
+    twice.  `minv` is the inverse as K1 returned it, handed to K2 without
+    a copy."""
+    __slots__ = ("Ms", "shift", "minv", "bad", "bad2")
+
+    def __init__(self, Ms, shift=None):
+        self.Ms, self.shift = Ms, shift
+        self.minv = self.bad = self.bad2 = None
+
+    def run(self):
+        Ms = self.Ms
+        minv, flag = spd_inverse(Ms)
+        bad = flag >= 2.0
+        if self.shift is not None:
+            bad2 = torch.zeros_like(bad)
+            with trace.span("ipm.sync"):
+                retry = bool(bad.any())
+            if retry:
+                with trace.span("ipm.sync"):
+                    idx = torch.nonzero(bad).flatten()
+                eye = torch.eye(Ms.shape[-1], dtype=Ms.dtype, device=Ms.device)
+                Ms2 = Ms[idx] + self.shift[idx][:, None, None] * eye
+                minv2, flag2 = spd_inverse(Ms2.contiguous())
+                minv = minv.index_copy(0, idx, minv2)
+                bad2 = bad2.index_copy(0, idx, flag2 >= 2.0)
+            _keep(self, "bad2", bad2)
+        self.minv = minv
+        _keep(self, "bad", bad)
+
+
+class _Solve:
+    """K2 through a `_Factor`'s inverse: `out` = M^-1 r."""
+    __slots__ = ("fac", "args", "out")
+
+    def __init__(self, fac, *args):
+        self.fac, self.args, self.out = fac, args, None
+
+    def run(self):
+        M_c, dinv_m, shift_m, r, steps, out_dtype = self.args
+        _keep(self, "out", spd_solve(self.fac.minv, M_c, dinv_m, shift_m, r,
+                                     steps, out_dtype))
+
+
+class _Eager:
+    """Runs a solve as its code stands: each island where it is called,
+    each host loop as a `while_loop` over lanes."""
+
+    @staticmethod
+    def island(isl):
+        isl.run()
+        return isl
+
+    @staticmethod
+    def loop(cond, step, state):
+        # batched while_loop: lanes whose condition is false keep their
+        # whole state (vmap-of-while_loop semantics); the host reads the
+        # number of active lanes once an iteration
+        active = cond(state)
+        n_active = _read(active.sum())
+        while n_active:
+            with trace.span("ipm.iter"):
+                state = _sel_state(active, step(state), state)
+                active = cond(state)
+                n_next = _read(active.sum())
+            trace.count("iters", 1)
+            trace.count("lane_iters", n_active)
+            n_active = n_next
+        return state
+
+
+_EAGER = _Eager()
+
+
+class _Loop:
+    """A host loop of a tape: its state `S`, mask `active` and count `cnt`
+    live at fixed addresses; each iteration replays the body (segments and
+    islands) that steps `S` in place, then reads `cnt`.  The body is
+    recorded at the first iteration that runs."""
+
+    def __init__(self, tape, cond, step, S, active, cnt):
+        self.tape = weakref.ref(tape)
+        self.cond, self.step = cond, step
+        self.S, self.active, self.cnt = S, active, cnt
+        self.body = None
+
+    def advance(self):
+        """One iteration as code (run while recording)."""
+        S, active = self.S, self.active
+        # the step hands back fresh tensors or its own slot's input, so
+        # writing a slot in place changes no other slot's new value
+        new = self.step(S)
+        for s, a in zip(S, new):
+            m = active.reshape(active.shape + (1,) * (a.dim() - 1))
+            torch.where(m, a, s, out=s)
+        active.copy_(self.cond(S))
+        self.cnt.copy_(active.sum())
+
+    def run(self):
+        n_active = _read(self.cnt)
+        while n_active:
+            with trace.span("ipm.iter"):
+                body = self.body
+                if body is None:
+                    self.tape().record_body(self)
+                else:
+                    for op in body:
+                        op()
+                n_next = _read(self.cnt)
+            trace.count("iters", 1)
+            trace.count("lane_iters", n_active)
+            if body is not None:
+                trace.count("replayed", 1)
+            n_active = n_next
+
+
+class _Tape:
+    """One key's solve as CUDA graphs.  The code between two islands or
+    host loops (a segment) is captured once and replayed: the prologue
+    from the inputs to the first loop's state, each loop's body, the
+    stretches between loops, the polish and the epilogue.  The islands
+    (each K1 call with its failed-lane read and retry, each K2 call) and
+    each loop's active-lane read run eagerly between segments, so every
+    kernel call and host read happens as in the eager solve.
+
+    `record` runs the key's first graphed solve on static copies of its
+    inputs, capturing each segment and replaying it at once, so that the
+    solve it returns is computed; `replay` copies new inputs into those
+    copies and runs the ops.  Only the recording solve captures into the
+    tape's memory pool, so the addresses its segments read and write hold
+    between solves; a loop whose body did not run while recording records
+    it at its first iteration in a later solve, into a pool of its own."""
+
+    def __init__(self, dev):
+        self.stream = _capture_stream(dev)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.ops = []
+        self.inputs = self.out = None
+        self._ops = self.ops          # where recorded ops go
+        self._graph = None            # the segment being captured
+
+    def _begin(self):
+        self._graph = torch.cuda.CUDAGraph()
+        self._graph.capture_begin(pool=self.pool,
+                                  capture_error_mode="thread_local")
+
+    def _cut(self):
+        g, self._graph = self._graph, None
+        g.capture_end()
+        g.replay()
+        self._ops.append(g.replay)
+
+    def _abort(self):
+        if self._graph is not None:
+            g, self._graph = self._graph, None
+            try:
+                g.capture_end()
+            except RuntimeError:
+                pass
+
+    @contextlib.contextmanager
+    def _on_side(self):
+        """Captures need a stream of their own: it waits for the caller's
+        stream at the start, and the caller's for it at the end."""
+        cur = torch.cuda.current_stream(self.stream.device)
+        if cur == self.stream:
+            yield
+            return
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            yield
+        cur.wait_stream(self.stream)
+
+    # ---- called from the solve's code while recording
+    def island(self, isl):
+        self._cut()
+        isl.run()
+        self._ops.append(isl.run)
+        self._begin()
+        return isl
+
+    def loop(self, cond, step, state):
+        # the loop's own state (slots that alias each other become
+        # distinct), mask and count
+        S = tuple(t.clone() for t in state)
+        active = cond(S)
+        lp = _Loop(self, cond, step, S, active, active.sum())
+        self._cut()
+        self._ops.append(lp.run)
+        lp.run()
+        self._begin()
+        return S
+
+    def record_body(self, lp):
+        ops, pool = self._ops, self.pool
+        self._ops = []
+        if self.inputs is not None:
+            # a later solve: the body's segments get a pool of their own,
+            # so that they allocate over nothing the tape keeps
+            self.pool = torch.cuda.graph_pool_handle()
+        try:
+            with self._on_side():
+                self._capture(lp.advance)
+            lp.body = self._ops
+        finally:
+            self._ops, self.pool = ops, pool
+
+    def _capture(self, fn, *args):
+        # no collection while recording: one could free another tape's
+        # graphs, which a capture forbids (it would fail)
+        paused = gc.isenabled()
+        gc.disable()
+        self._begin()
+        try:
+            out = fn(*args)
+            self._cut()
+        except BaseException:
+            self._abort()
+            raise
+        finally:
+            if paused:
+                gc.enable()
+        return out
+
+    # ---- a solve
+    def record(self, solve, args) -> IPMResult:
+        with self._on_side():
+            statics = tuple(None if a is None else a.clone() for a in args)
+            # the solve's code holds the tape weakly, so that a tape
+            # dropped with its solver goes at once, graphs and pools
+            out = self._capture(solve, *statics, weakref.proxy(self))
+        self.inputs, self.out = statics, out
+        return self._result()
+
+    def replay(self, args) -> IPMResult:
+        for s, a in zip(self.inputs, args):
+            if s is not None:
+                s.copy_(a)
+        for op in self.ops:
+            op()
+        return self._result()
+
+    def _result(self) -> IPMResult:
+        return IPMResult(*(t.clone() for t in self.out))
+
+    def close(self):
+        """Drops the graphs and every tensor kept (their pools go with
+        them)."""
+        self.ops.clear()
+        self._ops = self.ops
+        self.inputs = self.out = None
+
+
+_CAPTURE_STREAMS = {}
+
+
+def _capture_stream(dev) -> "torch.cuda.Stream":
+    """The stream that tapes capture on, one a device for the process.  A
+    new stream gets a cuBLAS workspace of its own at its first product,
+    kept for the process; here it is made by a product outside any
+    capture, so that no tape's memory pool holds it."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    stream = _CAPTURE_STREAMS.get(index)
+    if stream is None:
+        stream = torch.cuda.Stream(index)
+        with torch.cuda.stream(stream):
+            for dt in (F32, F64):
+                one = torch.ones(1, 1, 1, dtype=dt, device=index)
+                torch.matmul(one[0], one[0])
+                torch.matmul(one, one)
+        _CAPTURE_STREAMS[index] = stream
+    return stream
+
+
+class _Tapes:
+    """A solver's tapes by key, the least recently used dropped past
+    `SIZE`.  A key is recorded at its second solve: the first runs
+    eagerly, so that a key seen once costs no capture."""
+    SIZE = 4
+    SEEN = 64
+
+    def __init__(self):
+        self._tapes = collections.OrderedDict()
+        self._seen = collections.OrderedDict()
+
+    def __len__(self):
+        return len(self._tapes)
+
+    def clear(self):
+        for tape in self._tapes.values():
+            tape.close()
+        self._tapes.clear()
+        self._seen.clear()
+
+    def solve(self, key, solve, args) -> Optional[IPMResult]:
+        """The solve from the key's tape (recorded now at the key's second
+        solve), or None: the caller solves eagerly."""
+        tape = self._tapes.get(key)
+        if tape is not None:
+            self._tapes.move_to_end(key)
+            return tape.replay(args)
+        if key not in self._seen:
+            self._seen[key] = None
+            if len(self._seen) > self.SEEN:
+                self._seen.popitem(last=False)
+            return None
+        del self._seen[key]
+        if len(self._tapes) >= self.SIZE:
+            self._tapes.popitem(last=False)[1].close()
+        tape = _Tape(args[0].device)
+        res = tape.record(solve, args)
+        self._tapes[key] = tape
+        return res
+
+
+def _graphs_on(dev: torch.device) -> bool:
+    """Whether solves on `dev` may replay tapes: CUDA devices."""
+    return dev.type == "cuda"
 
 
 def _make_spd_solver(M: torch.Tensor, opts: IPMOptions, use_f32=None,
-                     out_dtype=None):
+                     out_dtype=None, run=_EAGER):
     """Batched SPD solve M x = r (M: (B, k, k)) through an explicit
     inverse of the Jacobi-scaled matrix (K1) and the refined solve (K2).
     Returns (solve, bad) with bad (B,) bool: both factorizations failed
-    and the lane got the identity."""
+    and the lane got the identity.  `run` places the K1 and K2 calls
+    (`_Eager`, or a `_Tape` recording)."""
     k = M.shape[-1]
     if k == 0:
         # an LP without rows on the m-space path: nothing to factorize
@@ -182,36 +535,25 @@ def _make_spd_solver(M: torch.Tensor, opts: IPMOptions, use_f32=None,
         Ms = M * dinv[:, :, None] * dinv[:, None, :]
     Ms = Ms.contiguous()
 
-    Minv_s, flag = spd_inverse(Ms)
-    bad = flag >= 2.0
     if use_f32 and not opts.chol_retry:
         # single-factorization path: failed lanes keep the identity
-        bad2 = bad
+        fac = run.island(_Factor(Ms))
+        bad = fac.bad
         shift_vec = torch.zeros_like(d)
     else:
         # Gershgorin-shifted retry, run only on the failed lanes (the
         # JAX code factorizes every lane twice and selects; the result
-        # is the same)
+        # is the same); every lane's shift is reckoned before K1, so
+        # that K1's island holds only the call, its read and the retry
         dms = torch.diagonal(Ms, dim1=1, dim2=2)
         gersh = torch.clamp(
             (dms - (Ms.abs().sum(dim=2) - dms.abs())).amin(dim=1), max=0.0)
-        shift = torch.where(bad, torch.clamp(-gersh, min=1e-6) + 1e-6,
-                            torch.zeros_like(gersh))
-        bad2 = torch.zeros_like(bad)
-        with trace.span("ipm.sync"):
-            retry = bool(bad.any())
-        if retry:
-            with trace.span("ipm.sync"):
-                idx = torch.nonzero(bad).flatten()
-            eye = torch.eye(k, dtype=Ms.dtype, device=Ms.device)
-            Ms2 = Ms[idx] + (shift[idx] + 1e-7)[:, None, None] * eye
-            Minv2, flag2 = spd_inverse(Ms2.contiguous())
-            Minv_s = Minv_s.index_copy(0, idx, Minv2)
-            bad2 = bad2.index_copy(0, idx, flag2 >= 2.0)
+        shift = torch.clamp(-gersh, min=1e-6) + 1e-6 + 1e-7
+        fac = run.island(_Factor(Ms, shift))
+        bad = fac.bad & fac.bad2
         # the operator actually factorized (for refinement): the shift
         # lives in scaled space, adding shift * d^2 on the diagonal
-        shift_vec = torch.where(bad, shift + 1e-7,
-                                torch.zeros_like(shift))[:, None] * d * d
+        shift_vec = torch.where(fac.bad, shift, 0.0)[:, None] * d * d
 
     if out_dtype is None:
         out_dtype = M.dtype
@@ -221,9 +563,10 @@ def _make_spd_solver(M: torch.Tensor, opts: IPMOptions, use_f32=None,
     M_c = M.contiguous()
 
     def solve(r):
-        return spd_solve(Minv_s, M_c, dinv_m, shift_m, r, steps, out_dtype)
+        return run.island(_Solve(fac, M_c, dinv_m, shift_m, r, steps,
+                                 out_dtype)).out
 
-    return solve, (bad & bad2)
+    return solve, bad
 
 
 def _mv(A, v):
@@ -362,11 +705,24 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             W = W + 2.0 * Q_const
         return W
 
-    def solve_impl(A, clb, cub, vlb, vub, x0, c_in, y0=None):
-        with trace.span("ipm.solve", lanes=vlb.shape[0]):
-            return _solve(A, clb, cub, vlb, vub, x0, c_in, y0)
+    # a shared-operator LP/QP solve on a CUDA device replays its tape
+    # (see _Tape); a per-lane operator (each iteration is device-bound)
+    # and the NL path (torch.func) stay eager
+    tapes = _Tapes()
+    graphed = _graphs_on(dev) and not has_nl
 
-    def _solve(A, clb, cub, vlb, vub, x0, c_in, y0):
+    def solve_impl(A, clb, cub, vlb, vub, x0, c_in, y0=None):
+        with trace.span("ipm.solve", lanes=vlb.shape[0], replayed=0):
+            args = (A, clb, cub, vlb, vub, x0, c_in, y0)
+            if graphed and A.dim() == 2:
+                key = tuple(None if a is None else (tuple(a.shape), a.dtype)
+                            for a in args)
+                res = tapes.solve(key, _solve, args)
+                if res is not None:
+                    return res
+            return _solve(*args, _EAGER)
+
+    def _solve(A, clb, cub, vlb, vub, x0, c_in, y0, run):
         B = vlb.shape[0]
         c_in = c_in.expand(B, n) if c_in.dim() == 1 else c_in
         lz = torch.cat([vlb, clb.expand(B, m)], dim=1)
@@ -642,14 +998,14 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                         torch.matmul(Jm.transpose(1, 2) * ineq_w[:, None, :],
                                      Jm) + W
                     solve_mx, _ = _make_spd_solver(Mx, sopts, use_f32,
-                                                   out_dtype=F64)
+                                                   out_dtype=F64, run=run)
                     if m_eq:
                         Je = Jm[:, eq_rows]
                         MeJ = solve_mx(Je.transpose(1, 2))
                         S = torch.matmul(Je, MeJ) + \
                             1e-10 * torch.eye(m_eq, dtype=F64, device=dev)
                         solve_s, _ = _make_spd_solver(S, sopts, use_f32,
-                                                      out_dtype=F64)
+                                                      out_dtype=F64, run=run)
 
                     def raw_xyz(rhs1, rhs2, rhs3):
                         rx = rhs1 + ((ineq_w * rhs3 + rhs2)[:, None, :] @
@@ -689,14 +1045,14 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     Mx = core * (mxa[:, :, None] * mxa[:, None, :]) + \
                         torch.diag_embed(Dx_diag.to(dt).to(adt))
                     solve_mx, _ = _make_spd_solver(Mx, sopts, use_f32,
-                                                   out_dtype=dt)
+                                                   out_dtype=dt, run=run)
                     if m_eq:
                         Ae = A_d.index_select(-2, eq_rows)
                         MeJ = solve_mx(mx_d[:, :, None] * _T(Ae))
                         S = torch.matmul(Ae, mx_d[:, :, None] * MeJ) + \
                             1e-10 * torch.eye(m_eq, dtype=dt, device=dev)
                         solve_s, _ = _make_spd_solver(S, sopts, use_f32,
-                                                      out_dtype=dt)
+                                                      out_dtype=dt, run=run)
 
                     def raw_xyz(rhs1, rhs2, rhs3):
                         r2, r3 = rhs2.to(dt), rhs3.to(dt)
@@ -759,7 +1115,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     Mf = torch.matmul(A_a * Ha[:, None, :], _T(A_a)) + \
                         torch.diag_embed((1.0 / Ds_d).to(adt))
                     solve_m, _ = _make_spd_solver(Mf, sopts, use_f32,
-                                                  out_dtype=dt)
+                                                  out_dtype=dt, run=run)
 
                     def raw_m(rhs1, rhs2, rhs3):
                         r1, r2 = rhs1.to(dt), rhs2.to(dt)
@@ -995,22 +1351,6 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                         bz2, by2, bzl2, bzu2, berr2, bmu2)
             return step
 
-        def _while(cond, step, state):
-            # batched while_loop: lanes whose condition is false keep
-            # their whole state (vmap-of-while_loop semantics); the host
-            # reads the number of active lanes once an iteration
-            active = cond(state)
-            n_active = _active_lanes(active)
-            while n_active:
-                with trace.span("ipm.iter"):
-                    state = _sel_state(active, step(state), state)
-                    active = cond(state)
-                    n_next = _active_lanes(active)
-                trace.count("iters", 1)
-                trace.count("lane_iters", n_active)
-                n_active = n_next
-            return state
-
         def cond_to(tol_target, k_cap):
             def cond(state):
                 k, err, berr = state[4], state[5], state[-2]
@@ -1042,7 +1382,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             # converged, then the tail with its own budget
             switch_tol = max(opts.tol, 1e-4)
             cap1 = max(1, opts.max_iters // 2)
-            state1 = _while(cond_to(switch_tol, cap1),
+            state1 = run.loop(cond_to(switch_tol, cap1),
                             make_step(True, light=light_on, ratchet=False),
                             state0)
             (z1, y1, zl1, zu1, k1, err1, mu1, bdb1, bY1, _rv1, nu1, st1,
@@ -1061,12 +1401,12 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     opts, kkt_rounds=opts.tail_kkt_rounds))
             else:
                 tail_step = make_step(False)
-            state2 = _while(cond_to(opts.tol, cap1 + opts.max_iters),
+            state2 = run.loop(cond_to(opts.tol, cap1 + opts.max_iters),
                             tail_step, state1)
             polish_step = tail_step
         else:
             polish_step = make_step(False)
-            state2 = _while(cond_to(opts.tol, opts.max_iters),
+            state2 = run.loop(cond_to(opts.tol, opts.max_iters),
                             make_step(False), state0)
         if cert_f64 is not None:
             # one extra ratcheted step shrinks the dual residual (and the
@@ -1148,6 +1488,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
 
     solve_one.with_objective = with_objective
     solve_one.device = dev
+    solve_one.tapes = tapes
     return solve_one
 
 
