@@ -5,11 +5,15 @@ vmapped over lanes; here every function takes the lane axis explicitly:
 bounds, starts and iterates are (B, .) tensors and the problem data (c,
 Q) is shared.  The constraint data is shared too ((m, n) `A`, (m,)
 `clb`/`cub`) or carries one matrix and one row range per lane ((B, m, n)
-and (B, m), the global path's box-dependent envelope rows, which the JAX
-package gets from `vmap` over this solver); the row structure (equality
-rows, x-space or m-space) is static either way.  The math, the two-phase
-drive, the certificates and the status machine follow the JAX code line
-by line; its docstrings explain the derivations.
+and (B, m), which the JAX package gets from `vmap` over this solver).
+The global path's box-dependent envelope rows come as a `LaneRows`
+(`engines/lane_rows.py`): dense shared base rows and per-lane values on
+a fixed sparsity pattern, whose products, Gram and row selection replace
+those of a dense (B, m, n) tensor; the operand's type picks the path.
+The row structure (equality rows, x-space or m-space) is static either
+way.  The math, the two-phase drive, the certificates and the status
+machine follow the JAX code line by line; its docstrings explain the
+derivations.
 
 `vmap` of a `while_loop` keeps a finished lane's carry frozen while the
 other lanes iterate.  `_Eager.loop` does the same with a per-lane
@@ -29,8 +33,9 @@ iteration device-bound) and the NL path stay eager.
 
 Spans (utils/trace.py): `ipm.solve` around each solve, with the counts
 `lanes`, `iters` (batched iterations), `lane_iters` (active lanes summed
-over them) and `replayed` (iterations replayed from a tape's recorded
-body); `ipm.iter` around each iteration (the step and the read that
+over them), `replayed` (iterations replayed from a tape's recorded
+body) and, on a `LaneRows` operator, `structured` (iterations run on
+it); `ipm.iter` around each iteration (the step and the read that
 follows it); `ipm.sync` around each blocking host read (the active-lane
 count and the Cholesky retry's two reads); `step.fetch` around the one
 copy of `build_batch_solver`'s packed result.
@@ -79,6 +84,7 @@ from ..ops.spd_inverse import spd_inverse
 from ..ops.spd_solve import spd_solve
 from ..utils import trace
 from ..utils.types import EngineStatus
+from .lane_rows import LaneRows
 from .staging import StagedProblem
 
 _BIG = 1e20
@@ -232,15 +238,18 @@ class _Solve:
 
 class _Eager:
     """Runs a solve as its code stands: each island where it is called,
-    each host loop as a `while_loop` over lanes."""
+    each host loop as a `while_loop` over lanes.  Each iteration counts
+    `iters` and the names in `counts` one each."""
+
+    def __init__(self, *counts):
+        self.counts = ("iters",) + counts
 
     @staticmethod
     def island(isl):
         isl.run()
         return isl
 
-    @staticmethod
-    def loop(cond, step, state):
+    def loop(self, cond, step, state):
         # batched while_loop: lanes whose condition is false keep their
         # whole state (vmap-of-while_loop semantics); the host reads the
         # number of active lanes once an iteration
@@ -251,13 +260,15 @@ class _Eager:
                 state = _sel_state(active, step(state), state)
                 active = cond(state)
                 n_next = _read(active.sum())
-            trace.count("iters", 1)
+            for key in self.counts:
+                trace.count(key, 1)
             trace.count("lane_iters", n_active)
             n_active = n_next
         return state
 
 
 _EAGER = _Eager()
+_EAGER_ROWS = _Eager("structured")     # a solve on a `LaneRows` operator
 
 
 class _Loop:
@@ -570,17 +581,44 @@ def _make_spd_solver(M: torch.Tensor, opts: IPMOptions, use_f32=None,
 
 
 def _mv(A, v):
-    """A v for every lane: A (m, n) shared or (B, m, n) per lane, v (B, n)."""
+    """A v for every lane: A (m, n) shared, (B, m, n) per lane or a
+    `LaneRows`, v (B, n)."""
+    if isinstance(A, LaneRows):
+        return A.mv(v)
     if A.dim() == 2:
         return v @ A.T
     return torch.matmul(A, v.unsqueeze(-1)).squeeze(-1)
 
 
 def _tv(A, v):
-    """A' v for every lane: A (m, n) shared or (B, m, n) per lane, v (B, m)."""
+    """A' v for every lane: A (m, n) shared, (B, m, n) per lane or a
+    `LaneRows`, v (B, m)."""
+    if isinstance(A, LaneRows):
+        return A.tv(v)
     if A.dim() == 2:
         return v @ A
     return torch.matmul(v.unsqueeze(-2), A).squeeze(-2)
+
+
+def _gram(A, w):
+    """A' diag(w) A for every lane (B, n, n), w (B, m)."""
+    if isinstance(A, LaneRows):
+        return A.gram(w)
+    return torch.matmul(_T(A) * w[:, None, :], A)
+
+
+def _row_gram(A, h):
+    """A diag(h) A' for every lane (B, m, m), h (B, n)."""
+    if isinstance(A, LaneRows):
+        return A.row_gram(h)
+    return torch.matmul(A * h[:, None, :], _T(A))
+
+
+def _rows(A, idx):
+    """Rows `idx` of A: (k, n) shared, else (B, k, n)."""
+    if isinstance(A, LaneRows):
+        return A.rows(idx)
+    return A.index_select(-2, idx)
 
 
 def _T(A):
@@ -597,7 +635,10 @@ def _split64(a):
 def _spmv(hi_lo, v64, trans=False):
     """f64-class product of an f64 operator (shared, or one per lane) with
     the lane rows of v64 via hi/lo f32 matmuls (see the JAX spmv): op @ v
-    per lane, or op.T @ v with trans."""
+    per lane, or op.T @ v with trans.  A `LaneRows` in place of the pair
+    multiplies in f64 directly."""
+    if isinstance(hi_lo, LaneRows):
+        return (hi_lo.tv if trans else hi_lo.mv)(v64)
     hi, lo = hi_lo
     prod = _tv if trans else _mv
     vh = v64.to(F32)
@@ -611,10 +652,11 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                         device="cuda") -> Callable:
     """Returns solve(A, clb, cub, vlb, vub, x0, y0=None) -> IPMResult on
     lane-batched tensors (vlb, vub, x0: (B, n); y0: (B, m)); A (m, n),
-    clb, cub (m,) are shared, or A (B, m, n), clb, cub (B, m) give each
-    lane its own rows (the equality-row mask still comes from sp.clb and
-    sp.cub).  `solve.with_objective(A, clb, cub, vlb, vub, x0, c_in,
-    y0=None)` swaps the linear objective (c_in: (n,) or (B, n))."""
+    clb, cub (m,) are shared, or A (B, m, n) or a `LaneRows`, clb, cub
+    (B, m) give each lane its own rows (the equality-row mask still comes
+    from sp.clb and sp.cub).  `solve.with_objective(A, clb, cub, vlb, vub,
+    x0, c_in, y0=None)` swaps the linear objective (c_in: (n,) or
+    (B, n))."""
     dev = resolve_device(device)
     check_fp32_matmul(dev)
 
@@ -712,6 +754,11 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
     graphed = _graphs_on(dev) and not has_nl
 
     def solve_impl(A, clb, cub, vlb, vub, x0, c_in, y0=None):
+        if isinstance(A, LaneRows):
+            with trace.span("ipm.solve", lanes=vlb.shape[0], replayed=0,
+                            structured=0):
+                return _solve(A, clb, cub, vlb, vub, x0, c_in, y0,
+                              _EAGER_ROWS)
         with trace.span("ipm.solve", lanes=vlb.shape[0], replayed=0):
             args = (A, clb, cub, vlb, vub, x0, c_in, y0)
             if graphed and A.dim() == 2:
@@ -756,9 +803,9 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
         else:
             # dual warm start (see the JAX code)
             y0 = torch.where(torch.isfinite(y0), y0, 0.0)
-            J0 = jac(A, x_init)
-            rz = torch.cat([grad_f(x_init, c_in) +
-                            (y0[:, None, :] @ J0)[:, 0], -y0], dim=1)
+            yJ0 = _tv(A, y0) if isinstance(A, LaneRows) else \
+                (y0[:, None, :] @ jac(A, x_init))[:, 0]
+            rz = torch.cat([grad_f(x_init, c_in) + yJ0, -y0], dim=1)
             zl0 = torch.where(fin_l, torch.clamp(rz, 1e-2, 1e8), 0.0)
             zu0 = torch.where(fin_u, torch.clamp(zl0 - rz, 1e-2, 1e8), 0.0)
 
@@ -768,8 +815,9 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             return torch.clamp(dl, min=1e-14), torch.clamp(du, min=1e-14)
 
         # the operators (shared or per lane): f64, f32 copy, hi/lo split
+        # (a `LaneRows` multiplies in f64 itself)
         A32 = A.to(F32)
-        A_sp = _split64(A)
+        A_sp = A if isinstance(A, LaneRows) else _split64(A)
         absA32 = A32.abs()
         mx64 = torch.where(fixed_x, 0.0, 1.0).to(F64)
         mx32 = mx64.to(F32)
@@ -1040,14 +1088,14 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     ineq_w = torch.where(eq_mask, 0.0, Ds_d) if m_eq else Ds_d
                     mxa = mx64.to(adt)
                     w_a = ineq_w.to(adt)
-                    gram = torch.matmul(_T(A_a) * w_a[:, None, :], A_a)
+                    gram = _gram(A_a, w_a)
                     core = gram if is_lp else gram + Qsym_a
                     Mx = core * (mxa[:, :, None] * mxa[:, None, :]) + \
                         torch.diag_embed(Dx_diag.to(dt).to(adt))
                     solve_mx, _ = _make_spd_solver(Mx, sopts, use_f32,
                                                    out_dtype=dt, run=run)
                     if m_eq:
-                        Ae = A_d.index_select(-2, eq_rows)
+                        Ae = _rows(A_d, eq_rows)
                         MeJ = solve_mx(mx_d[:, :, None] * _T(Ae))
                         S = torch.matmul(Ae, mx_d[:, :, None] * MeJ) + \
                             1e-10 * torch.eye(m_eq, dtype=dt, device=dev)
@@ -1112,7 +1160,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     Ds_d = Ds.to(dt)
                     Hinv = torch.where(fixed_x, 0.0, 1.0 / Dx_diag).to(dt)
                     Ha = Hinv.to(adt)
-                    Mf = torch.matmul(A_a * Ha[:, None, :], _T(A_a)) + \
+                    Mf = _row_gram(A_a, Ha) + \
                         torch.diag_embed((1.0 / Ds_d).to(adt))
                     solve_m, _ = _make_spd_solver(Mf, sopts, use_f32,
                                                   out_dtype=dt, run=run)

@@ -3,8 +3,8 @@
 Port of minotaur_tpu/glob/glob_step.py.  The JAX step is a one-box
 function vmapped over the batch; here every function takes (B, nz)
 boxes, so each lane builds its own envelope rows and the IPM solves B
-LPs whose constraint matrices differ (`engines/ipm.py` on (B, m, nz)
-operators).
+LPs whose constraint matrices differ (`engines/ipm.py` on a `LaneRows`
+operator, `engines/lane_rows.py`).
 
 Reference: QuadHandler.{h,cpp} — secant + tangent relaxation of squares
 (getNewSqLf_ :771), McCormick envelopes for bilinear terms
@@ -23,9 +23,12 @@ curvature metadata (glob/univariate.py); the shape selection (convex /
 concave / none) depends only on the sign of the box, so S-shaped
 functions regain full envelopes after one branch at their inflection.
 
-Each row builder writes its block of the (B, m, nz) matrix in place and
-returns the block's row ranges, so one step holds one dense per-lane
-matrix, not one per block plus their concatenation.
+Each row builder has a sparsity pattern fixed when the step is built
+(its (row, col) places) and returns its values there, (B, places), with
+the block's row ranges.  The step joins the blocks' patterns once into a
+`RowPattern` beside the base rows, so a lane carries its envelope
+values, not a dense (m, nz) matrix; a place that a block names twice (a
+square's x_i) is one slot whose values add in the block's order.
 
 Spans (utils/trace.py): `step` around each `step_b` call,
 `step.fbbt` around its FBBT rounds, `step.rows` around the lanes'
@@ -36,13 +39,14 @@ packed result to the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple
 
 import numpy as np
 import torch
 
 from ..device import F64, resolve_device
 from ..engines.ipm import IPMOptions, build_single_solver, to_device
+from ..engines.lane_rows import LaneRows, RowPattern
 from ..engines.staging import StagedProblem
 from ..ops.interval import _TorchNP, _idiv, _imul, linear_fbbt
 from ..utils import trace
@@ -83,9 +87,14 @@ class GlobStepOptions:
     ipm: IPMOptions = IPMOptions()
 
 
-# A row builder: (vlb, vub, A, r0) -> (lb, ub); writes its rows into
-# A[:, r0:r0 + rows] (zero on entry) and returns their (B, rows) ranges.
-Builder = Tuple[int, Callable]
+class Builder(NamedTuple):
+    """A block of `m` envelope rows: its nonzeros' places (`rows` within
+    the block, `cols`) and fn(vlb, vub) -> (vals (B, places), lb, ub
+    (B, m))."""
+    m: int
+    rows: np.ndarray
+    cols: np.ndarray
+    fn: Callable
 
 
 def _long(a, dev):
@@ -102,12 +111,6 @@ def _uni_static(gs: GlobStaged, dev) -> dict:
                 for key in ("shape_neg", "shape_span", "shape_pos")})
     out.update(ux=_long(gs.uni_x, dev), uy=_long(gs.uni_y, dev))
     return out
-
-
-def _scatter(A, r0, rows, cols, vals):
-    """A[b, r0 + rows[k], cols[k]] += vals[b, k] for every lane b."""
-    lanes = torch.arange(A.shape[0], device=A.device)[:, None]
-    A.index_put_((lanes, r0 + rows, cols), vals, accumulate=True)
 
 
 def _row_builders(gs: GlobStaged, opts: GlobStepOptions,
@@ -133,10 +136,11 @@ def _row_builders(gs: GlobStaged, opts: GlobStepOptions,
         lower_row = torch.as_tensor(
             np.where(gs.term_i[tidx] == gs.term_j[tidx], kind < 3, kind < 2),
             device=dev)
-        rows3 = _long(np.concatenate([rows, rows, rows]), dev)
-        cols3 = torch.cat([xi, xj, _long(gs.term_y[tidx], dev)])
+        rows3 = np.concatenate([rows, rows, rows])
+        cols3 = np.concatenate([gs.term_i[tidx], gs.term_j[tidx],
+                                gs.term_y[tidx]])
 
-        def envelopes(vlb, vub, A, r0):
+        def envelopes(vlb, vub):
             """squares  y = x^2 (li, ui finite where used):
               k=0: tangent at li : -2 li x + y >= -li^2
               k=1: tangent at ui : -2 ui x + y >= -ui^2
@@ -175,22 +179,22 @@ def _row_builders(gs: GlobStaged, opts: GlobStepOptions,
             rhs = w(sq, rhs_sq, rhs_bil)
             vals = torch.cat([w(ok, a_xi, 0.0), w(ok, a_xj, 0.0),
                               ok.to(F64)], dim=1)
-            _scatter(A, r0, rows3, cols3, vals)
-            return (w(ok & lower_row, rhs, -_INF),
+            return (vals, w(ok & lower_row, rhs, -_INF),
                     w(ok & ~lower_row, rhs, _INF))
 
-        out.append((m_env, envelopes))
+        out.append(Builder(m_env, rows3, cols3, envelopes))
 
     if n_u:
         u = _uni_static(gs, dev)
         u_dom_lo, u_dom_hi, ux, uy = u["dom_lo"], u["dom_hi"], u["ux"], u["uy"]
         fval, fder = fns[0], fns[1]
         m_uenv = 4 * n_u
-        urows = _long(np.arange(m_uenv), dev)
-        rows2 = torch.cat([urows, urows])
-        cols2 = torch.cat([ux.repeat_interleave(4), uy.repeat_interleave(4)])
+        urows = np.arange(m_uenv)
+        rows2 = np.concatenate([urows, urows])
+        cols2 = np.concatenate([np.repeat(gs.uni_x, 4),
+                                np.repeat(gs.uni_y, 4)])
 
-        def uni_envelopes(vlb, vub, A, r0):
+        def uni_envelopes(vlb, vub):
             """4 rows per univariate term y = f(x): tangents at lo/mid/hi
             + the secant.  Shape (convex/concave/none over this box)
             selects row direction; tangents of a convex (concave) f at
@@ -235,24 +239,29 @@ def _row_builders(gs: GlobStaged, opts: GlobStepOptions,
             lower_f = lower.reshape(B, m_uenv)
             vals = torch.cat([torch.where(ok_f, -slope_f, 0.0),
                               ok_f.to(F64)], dim=1)
-            _scatter(A, r0, rows2, cols2, vals)
-            return (torch.where(ok_f & lower_f, rhs_f, -_INF),
+            return (vals, torch.where(ok_f & lower_f, rhs_f, -_INF),
                     torch.where(ok_f & ~lower_f, rhs_f, _INF))
 
-        out.append((m_uenv, uni_envelopes))
+        out.append(Builder(m_uenv, rows2, cols2, uni_envelopes))
 
     if opts.rlt_cuts > 0 and n_y:
         from .rlt import build_rlt_rows_fn, enumerate_rlt
         cand = enumerate_rlt(gs, max_cuts=opts.rlt_cuts)
         if cand is not None:
             rlt_fn = build_rlt_rows_fn(cand, nz, dev)
+            # a row's places: its static part's support, the base row's
+            # and the factor's column (build_rlt_rows_fn)
+            C = cand.count
+            sup = (cand.Y != 0) | (cand.Arow != 0)
+            sup[np.arange(C), cand.k] = True
+            rr, rc = np.nonzero(np.tile(sup, (4, 1)))
+            rr_t, rc_t = _long(rr, dev), _long(rc, dev)
 
-            def rlt_rows(vlb, vub, A, r0):
+            def rlt_rows(vlb, vub):
                 rA, lb, ub = rlt_fn(vlb, vub)
-                A[:, r0:r0 + rA.shape[1]] = rA
-                return lb, ub
+                return rA[:, rr_t, rc_t], lb, ub
 
-            out.append((4 * cand.count, rlt_rows))
+            out.append(Builder(4 * C, rr, rc, rlt_rows))
 
     for arity, n_g, vars_, ys, lam0 in (
             (3, n_t, gs.tri_vars, gs.tri_y, gs.tri_lam0),
@@ -286,11 +295,9 @@ def _hull_rows(k: int, n_g: int, vars_, ys, lam0, dev) -> Builder:
     cols = np.concatenate(
         [np.asarray(vars_, dtype=np.int64).reshape(-1),
          np.asarray(ys, dtype=np.int64)] + [lam.reshape(-1)] * (k + 1))
-    rows_t = torch.as_tensor(rows, device=dev)
-    cols_t = torch.as_tensor(cols, device=dev)
     n_static = n_g * per
 
-    def hull_rows(vlb, vub, A, r0):
+    def hull_rows(vlb, vub):
         B = vlb.shape[0]
         lo, hi = vlb[:, tv], vub[:, tv]                    # (B, G, k)
         vals = torch.where(bits_t, hi[:, :, None, :], lo[:, :, None, :])
@@ -300,11 +307,10 @@ def _hull_rows(k: int, n_g: int, vars_, ys, lam0, dev) -> Builder:
         dyn = [-vals[..., i].reshape(B, -1) for i in range(k)]
         v = torch.cat([vlb.new_ones((B, n_static))] + dyn +
                       [-prod.reshape(B, -1)], dim=1)
-        _scatter(A, r0, rows_t, cols_t, v)
         zeros = vlb.new_zeros((B, n_g * per))
-        return zeros, zeros
+        return v, zeros, zeros
 
-    return n_g * per, hull_rows
+    return Builder(n_g * per, rows, cols, hull_rows)
 
 
 def build_envelope_fn(gs: GlobStaged,
@@ -317,24 +323,38 @@ def build_envelope_fn(gs: GlobStaged,
     dev = resolve_device(device)
     fns = make_uni_fns(gs.uni_f, gs.uni_k, dev) if gs.n_u else None
     builders = _row_builders(gs, opts, dev, fns)
-    m_env = sum(r for r, _ in builders)
+    rows_fn = _join_rows(builders, torch.zeros((0, gs.n), dtype=F64,
+                                               device=dev))
 
     def env_fn(vlb, vub):
         vlb, vub = to_device(vlb, dev), to_device(vub, dev)
-        A = torch.zeros((vlb.shape[0], m_env, gs.n), dtype=F64, device=dev)
-        lbs, ubs = [], []
-        r0 = 0
-        for rows, fn in builders:
-            lb, ub = fn(vlb, vub, A, r0)
-            lbs.append(lb)
-            ubs.append(ub)
-            r0 += rows
-        if not builders:
-            empty = vlb.new_zeros((vlb.shape[0], 0))
-            return A, empty, empty
-        return A, torch.cat(lbs, dim=1), torch.cat(ubs, dim=1)
+        A, lb, ub = rows_fn(vlb, vub)
+        return A.dense(), lb, ub
 
     return env_fn
+
+
+def _join_rows(builders: List[Builder], base: torch.Tensor) -> Callable:
+    """rows(vlb, vub) -> (LaneRows over `base` and the blocks' rows in
+    order, the blocks' lb, ub (B, rows)), on one pattern joined here."""
+    r0 = np.cumsum([0] + [b.m for b in builders])
+    pattern = RowPattern(
+        base, np.concatenate([np.zeros(0, np.int64)] +
+                             [r + b.rows for r, b in zip(r0, builders)]),
+        np.concatenate([np.zeros(0, np.int64)] +
+                       [b.cols for b in builders]), int(r0[-1]))
+
+    def rows(vlb, vub):
+        B = vlb.shape[0]
+        parts = [b.fn(vlb, vub) for b in builders]
+        if not parts:
+            empty = vlb.new_zeros((B, 0))
+            return LaneRows(pattern, empty), empty, empty
+        vals, lbs, ubs = zip(*parts)
+        return (LaneRows(pattern, pattern.merge(torch.cat(vals, dim=1))),
+                torch.cat(lbs, dim=1), torch.cat(ubs, dim=1))
+
+    return rows
 
 
 def build_glob_step(gs: GlobStaged, opts: GlobStepOptions = GlobStepOptions(),
@@ -350,7 +370,7 @@ def build_glob_step(gs: GlobStaged, opts: GlobStepOptions = GlobStepOptions(),
     f64 = dict(dtype=F64, device=dev)
     fns = make_uni_fns(gs.uni_f, gs.uni_k, dev) if n_u else None
     builders = _row_builders(gs, opts, dev, fns)
-    m_extra = sum(r for r, _ in builders)
+    m_extra = sum(b.m for b in builders)
     n_hull = 4 * gs.n_t + 5 * gs.n_q
     # engine over the extended row space; envelope rows staged as free
     # rows, the lambda-hull link rows as STATIC equalities (rhs 0) whose
@@ -368,6 +388,7 @@ def build_glob_step(gs: GlobStaged, opts: GlobStepOptions = GlobStepOptions(),
         nl_rows=np.zeros(0, np.int32), con_nl=None, nl_graphs=[])
     solve_one = build_single_solver(sp_ext, opts.ipm, dev)
     A_base = torch.as_tensor(gs.A, **f64)
+    envelope_rows = _join_rows(builders, A_base)
     clb_base = torch.as_tensor(gs.clb, **f64)
     cub_base = torch.as_tensor(gs.cub, **f64)
     int_mask = torch.as_tensor(gs.int_mask, device=dev)
@@ -469,18 +490,12 @@ def build_glob_step(gs: GlobStaged, opts: GlobStepOptions = GlobStepOptions(),
         return vlb, vub, infeas
 
     def relaxation(vlb, vub):
-        """The lanes' LP rows: (A (B, m, nz), clb, cub (B, m))."""
+        """The lanes' LP rows: (A, a `LaneRows` of m rows, clb, cub
+        (B, m))."""
         B = vlb.shape[0]
-        A = torch.zeros((B, m_base + m_extra, nz), **f64)
-        A[:, :m_base] = A_base
-        lbs, ubs = [clb_base.expand(B, m_base)], [cub_base.expand(B, m_base)]
-        r0 = m_base
-        for rows, fn in builders:
-            lb, ub = fn(vlb, vub, A, r0)
-            lbs.append(lb)
-            ubs.append(ub)
-            r0 += rows
-        return A, torch.cat(lbs, dim=1), torch.cat(ubs, dim=1)
+        A, lb, ub = envelope_rows(vlb, vub)
+        return (A, torch.cat([clb_base.expand(B, m_base), lb], dim=1),
+                torch.cat([cub_base.expand(B, m_base), ub], dim=1))
 
     def branching(x, vlb, vub):
         """Integer first, else the worst term's spatial variable and
@@ -601,4 +616,6 @@ def build_glob_step(gs: GlobStaged, opts: GlobStepOptions = GlobStepOptions(),
     step.dispatch = dispatch
     step.unpack = unpack
     step.device = dev
+    step.relaxation = relaxation
+    step.solver = solve_one
     return step
