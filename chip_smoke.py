@@ -114,12 +114,18 @@ Usage: python3 chip_smoke.py            (all phases, one card)
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+
+import torch
+
+from benchmark.harness.roofline import bound, k1_bound, k2_bound
+from minotaur_tpu_torch.tools import timing
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -197,96 +203,12 @@ def say(msg):
     print(msg, flush=True)
 
 
-def event_ms(fn, calls=20, reps=5, warmup=3):
-    """Milliseconds per call of fn(): CUDA events around `calls`
-    back-to-back calls, divided by `calls`, after warm-up; the median of
-    `reps` such windows."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(calls):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    times.sort()
-    return times[len(times) // 2]
-
-
-def graph_ms(fn, calls=20, reps=5):
-    """Device milliseconds per call of fn(): `calls` calls captured in one
-    CUDA graph after warm-up, the graph replayed between CUDA events and
-    the time divided by `calls`; the median of `reps` replays.  No host
-    dispatch falls inside the window, so this is the device's time even
-    where the caller's Python takes longer than the kernel."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    times.sort()
-    return times[len(times) // 2]
-
-
-# The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): HBM bytes/s
-# and the operation rate the bounds use for f32 (CUDA cores) and f64 (the
-# FP64 tensor-core rate, the card's highest for that type).
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {4: 67e12, 8: 67e12}
-
-
-def bound(flops, nbytes, itemsize):
-    """(bound_ms, bound_by): the larger of operations over the peak rate
-    for the type and bytes over the memory rate."""
-    t_ops = flops / PEAK_FLOPS[itemsize]
-    t_bytes = nbytes / HBM_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                        else "bytes")
-
-
-def k1_bound(B, k, itemsize):
-    """K1: potrf + trtri + lauum, k^3/3 flops each per lane; one read of
-    the lower triangle of ms (all the function needs) and one write of
-    Minv."""
-    return bound(B * k ** 3, B * (k * (k + 1) // 2 + k * k) * itemsize,
-                 itemsize)
-
-
-def k2_bound(B, k, sf, sm=None, steps=0):
-    """K2 on (B, k) lanes with one right-hand side, factor and operator
-    element sizes sf and sm: 2 k^2 flops a product, one product at refine
-    0, and with refinement 2 + 2 steps (the first solve and residual, then
-    a solve and a residual a round); reads Minv once, M once when refining
-    (one pass each is all the function needs), dinv, r (and shift when
-    refining) once, and writes x once."""
-    sm = sm or sf
-    prods = 1 if steps == 0 else 2 + 2 * steps
-    nbytes = B * k * k * sf + (B * k * k * sm if steps else 0) + \
-        B * k * sm * (2 if steps else 1) + 2 * B * k * sm
-    return bound(2 * B * k * k * prods, nbytes, max(sf, sm))
+# `tools/timing.py`'s timers at this script's windows: 20 calls a window,
+# the median of 5 windows, after 3 warm-up calls (the graph timer warms up
+# on its own)
+time_ms = functools.partial(timing.time_ms, device=torch.device(DEVICE),
+                            calls=20, reps=5, warmup=3)
+graph_ms = functools.partial(timing.graph_ms, calls=20, reps=5)
 
 
 def spd_batch(rng, B, k, scale=2.0):
@@ -523,9 +445,9 @@ def phase_k1(record):
     for dt in (torch.float32, torch.float64):
         ms = torch.as_tensor(spd_batch(rng, B, k), dtype=dt, device=dev)
         times[dt] = dict(
-            ms=event_ms(lambda: spd_inverse(ms)),
-            plain_ms=event_ms(lambda: spd_inverse_plain(ms)),
-            library_ms=event_ms(lambda: torch.linalg.inv_ex(ms)))
+            ms=time_ms(lambda: spd_inverse(ms)),
+            plain_ms=time_ms(lambda: spd_inverse_plain(ms)),
+            library_ms=time_ms(lambda: torch.linalg.inv_ex(ms)))
         times[dt]["bound_ms"], times[dt]["bound_by"] = k1_bound(
             B, k, ms.element_size())
     t32, t64 = times[torch.float32], times[torch.float64]
@@ -625,7 +547,7 @@ def phase_k2(record):
         # the wrapper (or of the plain version's ops) can set
         for name, fn in (("", spd_solve), ("plain_", spd_solve_plain)):
             t[key + name + "ms"] = graph_ms(lambda: fn(*args))
-            t[key + name + "call_ms"] = event_ms(lambda: fn(*args))
+            t[key + name + "call_ms"] = time_ms(lambda: fn(*args))
 
     # (a) refine 0, f32, L2-warm: Minv (23 MB) stays in the 50 MB L2, as
     # between the solves of one IPM iteration
@@ -842,9 +764,9 @@ def phase_nl_kernels(record):
     check(k1_err <= 1e-11 * pminv.abs().max().item(),
           f"K1 (NL shape) vs plain {k1_err:.3g}")
     del minv, pminv
-    k1 = dict(ms=event_ms(lambda: spd_inverse(ms), calls=5, reps=3),
-              plain_ms=event_ms(lambda: spd_inverse_plain(ms), calls=5, reps=3),
-              library_ms=event_ms(lambda: torch.linalg.inv_ex(ms), calls=5,
+    k1 = dict(ms=time_ms(lambda: spd_inverse(ms), calls=5, reps=3),
+              plain_ms=time_ms(lambda: spd_inverse_plain(ms), calls=5, reps=3),
+              library_ms=time_ms(lambda: torch.linalg.inv_ex(ms), calls=5,
                                   reps=3))
     k1["bound_ms"], k1_by = k1_bound(B, k, 8)
     k1["design"] = design_name(spd_inverse_design(B, k))
@@ -941,8 +863,8 @@ def phase_nl_ipm(record):
     jac = vmap(jacfwd(sp.con_nl))
     hess = vmap(hessian(lambda xx, yy: yy.index_select(-1, rows) @
                         sp.con_nl(xx)))
-    jac_ms = event_ms(lambda: jac(x), calls=3, reps=3)
-    hess_ms = event_ms(lambda: hess(x, y), calls=3, reps=3)
+    jac_ms = time_ms(lambda: jac(x), calls=3, reps=3)
+    hess_ms = time_ms(lambda: hess(x, y), calls=3, reps=3)
     sweep = build_fbbt_sweep(sp, 1e-6, dev)
     A_t, clb_t, cub_t, lo_t, hi_t = t(sp.A), t(sp.clb), t(sp.cub), t(lo), t(hi)
     nofeas = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -1178,10 +1100,10 @@ def f32_kernels_vs_plain(B, k, seeds, steps=2):
     check(k1["max_abs_err"] <= 5e-5 * pminv.abs().max().item(),
           f"{what} vs plain {k1['max_abs_err']:.3g}")
     del minv, pminv
-    k1.update(ms=event_ms(lambda: spd_inverse(ms), calls=calls, reps=3),
-              plain_ms=event_ms(lambda: spd_inverse_plain(ms), calls=calls,
+    k1.update(ms=time_ms(lambda: spd_inverse(ms), calls=calls, reps=3),
+              plain_ms=time_ms(lambda: spd_inverse_plain(ms), calls=calls,
                                 reps=3),
-              library_ms=event_ms(lambda: torch.linalg.inv_ex(ms),
+              library_ms=time_ms(lambda: torch.linalg.inv_ex(ms),
                                   calls=calls, reps=3))
     k1["bound_ms"], k1["bound_by"] = k1_bound(B, k, 4)
     k1["design"] = design_name(spd_inverse_design(B, k))
@@ -1495,9 +1417,9 @@ def phase_f32_path(record):
     check(torch.equal(flag, pflag) and
           k1_err <= 5e-5 * pminv.abs().max().item(),
           f"K1 at the OBBT shape vs plain {k1_err:.3g}")
-    k1 = dict(ms=event_ms(lambda: spd_inverse(ms)),
-              plain_ms=event_ms(lambda: spd_inverse_plain(ms)),
-              library_ms=event_ms(lambda: torch.linalg.inv_ex(ms)))
+    k1 = dict(ms=time_ms(lambda: spd_inverse(ms)),
+              plain_ms=time_ms(lambda: spd_inverse_plain(ms)),
+              library_ms=time_ms(lambda: torch.linalg.inv_ex(ms)))
     k1["bound_ms"], k1["bound_by"] = k1_bound(2 * n, kk, 4)
     # K2 at the OBBT lanes' call: the default IPM's f32 factor and
     # operator, f64 r and x, refine 2 (m-space, k = the linear rows)
@@ -1529,7 +1451,7 @@ def phase_f32_path(record):
           k2_err <= 1e-5 * px.abs().max().item(),
           f"K2 at the light phase's dtypes vs plain {k2_err:.3g}")
     k2 = dict(ms=graph_ms(lambda: spd_solve(*args, 0, torch.float32)),
-              call_ms=event_ms(lambda: spd_solve(*args, 0, torch.float32)),
+              call_ms=time_ms(lambda: spd_solve(*args, 0, torch.float32)),
               plain_ms=graph_ms(lambda: spd_solve_plain(*args, 0,
                                                         torch.float32)))
     # f64 r read once, f32 x written once

@@ -165,7 +165,6 @@ class BranchAndBound:
             fbbt_rounds=int(opts.get("fbbt_rounds")) if opts.get("nl_presolve") else 0,
             ipm=IPMOptions(max_iters=int(opts.get("ipm_max_iters")),
                            tol=float(opts.get("ipm_tol")),
-                           use_pallas=bool(opts.get("ipm_use_pallas")),
                            chol_retry=bool(opts.get("ipm_chol_retry")),
                            tail_kkt_rounds=int(
                                opts.get("ipm_tail_kkt_rounds")),

@@ -5,13 +5,13 @@ vmapped over lanes; here every function takes the lane axis explicitly:
 bounds, starts and iterates are (B, .) tensors and the problem data (c,
 Q) is shared.  The constraint data is shared too ((m, n) `A`, (m,)
 `clb`/`cub`) or carries one matrix and one row range per lane ((B, m, n)
-and (B, m), which the JAX package gets from `vmap` over this solver).
-The global path's box-dependent envelope rows come as a `LaneRows`
-(`engines/lane_rows.py`): dense shared base rows and per-lane values on
-a fixed sparsity pattern, whose products, Gram and row selection replace
-those of a dense (B, m, n) tensor; the operand's type picks the path.
-The row structure (equality rows, x-space or m-space) is static either
-way.  The math, the two-phase drive, the certificates and the status
+and (B, m), which the JAX package gets from `vmap` over this solver), or
+comes as a `LaneRows` (the global path's envelope rows on a fixed
+sparsity pattern).  `_solve` turns the operand into its operator
+(`engines/lane_rows.py`: `as_operator`), and the solve asks only that
+operator's methods for its products, Grams, selected rows, f64-class
+products and dtype copies.  The row structure (equality rows, x-space or
+m-space) is static either way.  The math, the two-phase drive, the certificates and the status
 machine follow the JAX code line by line; its docstrings explain the
 derivations.
 
@@ -28,14 +28,16 @@ the step variants).  The graphs hold the code between the islands, which
 run eagerly: each K1 call with its failed-lane read and retry, each K2
 call, and each loop's active-lane read.  So the same kernels run on the
 same data in the same order, and the host dispatches each iteration's
-elementwise ops as a few graph launches.  Per-lane operators (each
-iteration device-bound) and the NL path stay eager.
+elementwise ops as a few graph launches.  Whether a solve may take a
+tape is the operator's answer (`replayable`: the shared kind only); the
+per-lane kinds (each iteration device-bound) and the NL path stay
+eager.
 
 Spans (utils/trace.py): `ipm.solve` around each solve, with the counts
 `lanes`, `iters` (batched iterations), `lane_iters` (active lanes summed
 over them), `replayed` (iterations replayed from a tape's recorded
-body) and, on a `LaneRows` operator, `structured` (iterations run on
-it); `ipm.iter` around each iteration (the step and the read that
+body) and the operator's own counts (`counts`: `structured` on a
+`LaneRows`, iterations run on it); `ipm.iter` around each iteration (the step and the read that
 follows it); `ipm.sync` around each blocking host read (the active-lane
 count and the Cholesky retry's two reads); `step.fetch` around the one
 copy of `build_batch_solver`'s packed result.
@@ -61,9 +63,10 @@ step and its Farkas test) in float32, as the JAX code's env32 does; a
 Farkas exit from that arithmetic is confirmed in float64 after the loop.
 `tail_corr_f32` computes the tail's block-correction residuals in
 float32.  `gondzio_correctors` adds the centrality corrections (LP/QP),
-each one more solve through the iteration's factorization.  `use_pallas`
-is accepted and has no effect: the port always runs its own kernel (on
-the JAX CPU backend that flag is inert too).
+each one more solve through the iteration's factorization.  The JAX
+package's `use_pallas` has no field here: the port always runs its own
+kernel, and the environment option `ipm_use_pallas` is accepted and
+read by nothing.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ from ..ops.spd_inverse import spd_inverse
 from ..ops.spd_solve import spd_solve
 from ..utils import trace
 from ..utils.types import EngineStatus
-from .lane_rows import LaneRows
+from .lane_rows import as_operator
 from .staging import StagedProblem
 
 _BIG = 1e20
@@ -107,8 +110,6 @@ class IPMOptions:
     # refinement rounds inside each f32 SPD solve (K2's refine_steps)
     refine_steps: int = 2
     kkt_rounds: int = 1         # block-level defect-correction rounds
-    # TPU-only switch of the JAX package; the port always runs K1
-    use_pallas: bool = False
     # retry a failed f32 factorization once with a Gershgorin shift
     chol_retry: bool = True
     # keep the f32 factorization in the tail (deeper defect correction)
@@ -268,7 +269,6 @@ class _Eager:
 
 
 _EAGER = _Eager()
-_EAGER_ROWS = _Eager("structured")     # a solve on a `LaneRows` operator
 
 
 class _Loop:
@@ -580,80 +580,12 @@ def _make_spd_solver(M: torch.Tensor, opts: IPMOptions, use_f32=None,
     return solve, bad
 
 
-def _mv(A, v):
-    """A v for every lane: A (m, n) shared, (B, m, n) per lane or a
-    `LaneRows`, v (B, n)."""
-    if isinstance(A, LaneRows):
-        return A.mv(v)
-    if A.dim() == 2:
-        return v @ A.T
-    return torch.matmul(A, v.unsqueeze(-1)).squeeze(-1)
-
-
-def _tv(A, v):
-    """A' v for every lane: A (m, n) shared, (B, m, n) per lane or a
-    `LaneRows`, v (B, m)."""
-    if isinstance(A, LaneRows):
-        return A.tv(v)
-    if A.dim() == 2:
-        return v @ A
-    return torch.matmul(v.unsqueeze(-2), A).squeeze(-2)
-
-
-def _gram(A, w):
-    """A' diag(w) A for every lane (B, n, n), w (B, m)."""
-    if isinstance(A, LaneRows):
-        return A.gram(w)
-    return torch.matmul(_T(A) * w[:, None, :], A)
-
-
-def _row_gram(A, h):
-    """A diag(h) A' for every lane (B, m, m), h (B, n)."""
-    if isinstance(A, LaneRows):
-        return A.row_gram(h)
-    return torch.matmul(A * h[:, None, :], _T(A))
-
-
-def _rows(A, idx):
-    """Rows `idx` of A: (k, n) shared, else (B, k, n)."""
-    if isinstance(A, LaneRows):
-        return A.rows(idx)
-    return A.index_select(-2, idx)
-
-
-def _T(A):
-    """A' of a shared (m, n) or per-lane (B, m, n) operator."""
-    return A.transpose(-1, -2)
-
-
-def _split64(a):
-    """hi/lo f32 split of an f64 operand (hi + lo == a exactly)."""
-    hi = a.to(F32)
-    return hi, (a - hi.to(F64)).to(F32)
-
-
-def _spmv(hi_lo, v64, trans=False):
-    """f64-class product of an f64 operator (shared, or one per lane) with
-    the lane rows of v64 via hi/lo f32 matmuls (see the JAX spmv): op @ v
-    per lane, or op.T @ v with trans.  A `LaneRows` in place of the pair
-    multiplies in f64 directly."""
-    if isinstance(hi_lo, LaneRows):
-        return (hi_lo.tv if trans else hi_lo.mv)(v64)
-    hi, lo = hi_lo
-    prod = _tv if trans else _mv
-    vh = v64.to(F32)
-    vl = (v64 - vh.to(F64)).to(F32)
-    main = prod(hi, vh)
-    corr = prod(hi, vl) + prod(lo, vh)
-    return main.to(F64) + corr.to(F64)
-
-
 def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                         device="cuda") -> Callable:
     """Returns solve(A, clb, cub, vlb, vub, x0, y0=None) -> IPMResult on
     lane-batched tensors (vlb, vub, x0: (B, n); y0: (B, m)); A (m, n),
     clb, cub (m,) are shared, or A (B, m, n) or a `LaneRows`, clb, cub
-    (B, m) give each lane its own rows (the equality-row mask still comes
+    (B, m) give each lane its own rows (`as_operator` reads A's kind) (the equality-row mask still comes
     from sp.clb and sp.cub).  `solve.with_objective(A, clb, cub, vlb, vub,
     x0, c_in, y0=None)` swaps the linear objective (c_in: (n,) or
     (B, n))."""
@@ -692,7 +624,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             q_eigw = t64(_w)
             q_eigV = t64(_V)
             q_wpos = torch.as_tensor(_w > 1e-10, device=dev)
-            qV_sp = _split64(q_eigV)
+            qV_sp = as_operator(q_eigV).split()
     PIN = 1e10 if condense_x else 1e16
     # phase 1 in float32 arithmetic (LP/QP with f32 factors only)
     light_on = (not has_nl) and opts.factor_f32 and opts.light_phase1
@@ -719,7 +651,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
         return g
 
     def g_con(A, x):
-        v = _mv(A, x)
+        v = A.mv(x)
         if con_nl is not None:
             v = v.index_add(1, nl_rows, con_nl(x))
         return v
@@ -728,10 +660,10 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
         jac_nl = vmap(jacfwd(con_nl))
 
         def jac(A, x):
-            return A.expand(x.shape[0], m, n).index_add(1, nl_rows, jac_nl(x))
+            return A.expand(x.shape[0]).index_add(1, nl_rows, jac_nl(x))
     else:
         def jac(A, x):
-            return A.expand(x.shape[0], m, n)
+            return A.expand(x.shape[0])
 
     if has_nl:
         def lag_nl(x, y):
@@ -747,29 +679,28 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             W = W + 2.0 * Q_const
         return W
 
-    # a shared-operator LP/QP solve on a CUDA device replays its tape
-    # (see _Tape); a per-lane operator (each iteration is device-bound)
-    # and the NL path (torch.func) stay eager
+    # an LP/QP solve on a CUDA device replays its tape (see _Tape) where
+    # its operator allows it (the shared kind); per-lane operators (each
+    # iteration is device-bound) and the NL path (torch.func) stay eager
     tapes = _Tapes()
     graphed = _graphs_on(dev) and not has_nl
 
     def solve_impl(A, clb, cub, vlb, vub, x0, c_in, y0=None):
-        if isinstance(A, LaneRows):
-            with trace.span("ipm.solve", lanes=vlb.shape[0], replayed=0,
-                            structured=0):
-                return _solve(A, clb, cub, vlb, vub, x0, c_in, y0,
-                              _EAGER_ROWS)
-        with trace.span("ipm.solve", lanes=vlb.shape[0], replayed=0):
+        op = as_operator(A)
+        with trace.span("ipm.solve", lanes=vlb.shape[0], replayed=0,
+                        **dict.fromkeys(op.counts, 0)):
+            # the tape keeps and keys the raw tensors; `_solve` wraps them
             args = (A, clb, cub, vlb, vub, x0, c_in, y0)
-            if graphed and A.dim() == 2:
+            if graphed and op.replayable:
                 key = tuple(None if a is None else (tuple(a.shape), a.dtype)
                             for a in args)
                 res = tapes.solve(key, _solve, args)
                 if res is not None:
                     return res
-            return _solve(*args, _EAGER)
+            return _solve(*args, _Eager(*op.counts))
 
     def _solve(A, clb, cub, vlb, vub, x0, c_in, y0, run):
+        A = as_operator(A)
         B = vlb.shape[0]
         c_in = c_in.expand(B, n) if c_in.dim() == 1 else c_in
         lz = torch.cat([vlb, clb.expand(B, m)], dim=1)
@@ -803,8 +734,7 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
         else:
             # dual warm start (see the JAX code)
             y0 = torch.where(torch.isfinite(y0), y0, 0.0)
-            yJ0 = _tv(A, y0) if isinstance(A, LaneRows) else \
-                (y0[:, None, :] @ jac(A, x_init))[:, 0]
+            yJ0 = A.jac_tv(y0, lambda op: jac(op, x_init))
             rz = torch.cat([grad_f(x_init, c_in) + yJ0, -y0], dim=1)
             zl0 = torch.where(fin_l, torch.clamp(rz, 1e-2, 1e8), 0.0)
             zu0 = torch.where(fin_u, torch.clamp(zl0 - rz, 1e-2, 1e8), 0.0)
@@ -814,10 +744,10 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             du = torch.where(fin_u, uz - z, 1.0)
             return torch.clamp(dl, min=1e-14), torch.clamp(du, min=1e-14)
 
-        # the operators (shared or per lane): f64, f32 copy, hi/lo split
-        # (a `LaneRows` multiplies in f64 itself)
+        # the operator's f32 copy (kept: `A.to(F32)` gives it again), its
+        # f64-class form and |A| in f32
         A32 = A.to(F32)
-        A_sp = A if isinstance(A, LaneRows) else _split64(A)
+        A_sp = A.split()
         absA32 = A32.abs()
         mx64 = torch.where(fixed_x, 0.0, 1.0).to(F64)
         mx32 = mx64.to(F32)
@@ -846,11 +776,11 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             if has_nl:
                 return residuals_nl(z, y, zl, zu)[:3]
             x, s = z[:, :n], z[:, n:]
-            rd_x = grad_f(x, c_in) + _tv(A, y) - zl[:, :n] + zu[:, :n]
+            rd_x = grad_f(x, c_in) + A.tv(y) - zl[:, :n] + zu[:, :n]
             rd_s = -y - zl[:, n:] + zu[:, n:]
             rd_x = torch.where(fixed_x, 0.0, rd_x)
             rd_s = torch.where(fixed_s, 0.0, rd_s)
-            rp = _mv(A, x) - s
+            rp = A.mv(x) - s
             return rd_x, rd_s, rp
 
         def residuals32(z, y, zl, zu):
@@ -858,20 +788,19 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             x, s = z[:, :n].to(F32), z[:, n:].to(F32)
             yk = y.to(F32)
             gf = c32 + x @ Qsym32 if has_q else c32
-            rd_x = gf + _tv(A32, yk) - zl[:, :n].to(F32) + zu[:, :n].to(F32)
+            rd_x = gf + A32.tv(yk) - zl[:, :n].to(F32) + zu[:, :n].to(F32)
             rd_s = -yk - zl[:, n:].to(F32) + zu[:, n:].to(F32)
             rd_x = torch.where(fixed_x, 0.0, rd_x)
             rd_s = torch.where(fixed_s, 0.0, rd_s)
-            rp = _mv(A32, x) - s
+            rp = A32.mv(x) - s
             return rd_x, rd_s, rp
 
         def residuals_nl(z, y, zl, zu):
-            """NL residuals at the fresh Jacobian J (also returned: the
-            step assembles its matrix from it)."""
+            """NL residuals at the fresh Jacobian J, a per-lane operator
+            (also returned: the step assembles its matrix from it)."""
             x, s = z[:, :n], z[:, n:]
-            J = jac(A, x)
-            rd_x = grad_f(x, c_in) + (y[:, None, :] @ J)[:, 0] - \
-                zl[:, :n] + zu[:, :n]
+            J = as_operator(jac(A, x))
+            rd_x = grad_f(x, c_in) + J.tv(y) - zl[:, :n] + zu[:, :n]
             rd_s = -y - zl[:, n:] + zu[:, n:]
             # fixed coordinates carry an implicit free multiplier that
             # absorbs their dual residual exactly
@@ -939,26 +868,26 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             phase's in-loop exits, which are re-confirmed in f64."""
             tc = _cert_clamp_t(y, e)
             Ae, absAe = (A, A.abs()) if e["dt"] == F64 else (A32, absA32)
-            r = -_tv(Ae, tc)
+            r = -Ae.tv(tc)
             g0 = _cert_lp_terms(tc, r, 0.0, e)
-            mat_mag = _tv(absAe, tc.abs()).sum(dim=1)
+            mat_mag = absAe.tv(tc.abs()).sum(dim=1)
             return g0 > margin * (1.0 + _cert_scale(tc, r, mat_mag, e))
 
         def farkas_sp(y):
             """In-loop Farkas test via split-f32 products; every exit is
             re-confirmed in f64 after the loop."""
             tc = _cert_clamp_t(y)
-            r = -_spmv(A_sp, tc, trans=True)
+            r = -A_sp.tv(tc)
             rc = _rc_clamp(r)
             slack_pen = ((r - rc).abs() * e64["box"]).sum(dim=1)
             g0 = _row_term(tc) + _col_term(rc) - slack_pen
             g0 = torch.where(torch.isnan(g0), -_BIG, g0)
-            mat_mag = _tv(absA32, tc.abs().to(F32)).sum(dim=1).to(F64)
+            mat_mag = absA32.tv(tc.abs().to(F32)).sum(dim=1).to(F64)
             return g0 > 1e-5 * (1.0 + _cert_scale(tc, r, mat_mag))
 
         def qp_cert_bound(y):
             tc = _cert_clamp_t(y)
-            r = c_in - _tv(A, tc)
+            r = c_in - A.tv(tc)
             alpha = r @ q_eigV
             quad_min = -0.25 * torch.where(
                 q_wpos, alpha * alpha / torch.clamp(q_eigw, min=1e-30),
@@ -968,26 +897,26 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
 
         def dual_cert_bound(y):
             tc = _cert_clamp_t(y)
-            return _cert_lp_terms(tc, c_in - _tv(A, tc), sp.obj_const)
+            return _cert_lp_terms(tc, c_in - A.tv(tc), sp.obj_const)
 
         if is_lp:
             cert_f64 = dual_cert_bound
 
             def cert_proxy(y):
                 tc = _cert_clamp_t(y)
-                r = c_in - _spmv(A_sp, tc, trans=True)
+                r = c_in - A_sp.tv(tc)
                 return _cert_lp_terms(tc, r, sp.obj_const)
         elif q_psd:
             cert_f64 = qp_cert_bound
 
             def cert_proxy(y):
                 tc = _cert_clamp_t(y)
-                r = c_in - _spmv(A_sp, tc, trans=True)
-                alpha = _spmv(qV_sp, r, trans=True)
+                r = c_in - A_sp.tv(tc)
+                alpha = qV_sp.tv(r)
                 quad_min = -0.25 * torch.where(
                     q_wpos, alpha * alpha / torch.clamp(q_eigw, min=1e-30),
                     0.0).sum(dim=1)
-                r0 = _spmv(qV_sp, torch.where(q_wpos, 0.0, alpha))
+                r0 = qV_sp.mv(torch.where(q_wpos, 0.0, alpha))
                 return _cert_qp_terms(tc, quad_min, r0)
         else:
             cert_f64 = None
@@ -1002,12 +931,12 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
             fdt = F32 if use_f32 else F64
             dt = F32 if light else F64
             adt = fdt if (light or sopts.light_assembly) else dt
-            A_a = A32 if adt == F32 else A
             Qsym_a = (Qsym32 if adt == F32 else Qsym) if has_q else None
             # the solve chain's operator and fixed-variable mask
-            A_d, mx_d = (A32, mx32) if dt == F32 else (A, mx64)
+            A_d, mx_d = A.to(dt), (mx32 if dt == F32 else mx64)
             # block-correction residual dtype (LP/QP with f32 factors)
             cdt = F32 if (light or sopts.tail_corr_f32) else F64
+            A_c = A.to(cdt)
 
             def step(state):
                 (z, y, zl, zu, k, err, mu_prev, best_db, best_y, rvec, nu,
@@ -1038,37 +967,33 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     # variables exactly eliminated (column-masked J, masked
                     # W, unit diagonal, zero rhs)
                     ineq_w = torch.where(eq_mask, 0.0, Ds) if m_eq else Ds
-                    Jm = torch.where(fixed_x[:, None, :], 0.0, J)
+                    Jm = as_operator(torch.where(fixed_x[:, None, :], 0.0,
+                                                 J.data))
                     W = hess_W(z[:, :n], y)
                     wmask = (~fixed_x)[:, :, None] & (~fixed_x)[:, None, :]
                     W = torch.where(wmask, W, 0.0)
-                    Mx = torch.diag_embed(Dx_diag) + \
-                        torch.matmul(Jm.transpose(1, 2) * ineq_w[:, None, :],
-                                     Jm) + W
+                    Mx = torch.diag_embed(Dx_diag) + Jm.gram(ineq_w) + W
                     solve_mx, _ = _make_spd_solver(Mx, sopts, use_f32,
                                                    out_dtype=F64, run=run)
                     if m_eq:
-                        Je = Jm[:, eq_rows]
-                        MeJ = solve_mx(Je.transpose(1, 2))
-                        S = torch.matmul(Je, MeJ) + \
+                        Je = Jm.rows(eq_rows)
+                        MeJ = solve_mx(Je.data.mT)
+                        S = torch.matmul(Je.data, MeJ) + \
                             1e-10 * torch.eye(m_eq, dtype=F64, device=dev)
                         solve_s, _ = _make_spd_solver(S, sopts, use_f32,
                                                       out_dtype=F64, run=run)
 
                     def raw_xyz(rhs1, rhs2, rhs3):
-                        rx = rhs1 + ((ineq_w * rhs3 + rhs2)[:, None, :] @
-                                     Jm)[:, 0]
+                        rx = rhs1 + Jm.tv(ineq_w * rhs3 + rhs2)
                         rx = torch.where(fixed_x, 0.0, rx)
                         if m_eq:
                             t = solve_mx(rx)
-                            dy_eq = solve_s(
-                                torch.matmul(Je, t[:, :, None])[:, :, 0] -
-                                rhs3[:, eq_rows])
+                            dy_eq = solve_s(Je.mv(t) - rhs3[:, eq_rows])
                             dx = t - torch.matmul(MeJ, dy_eq[:, :, None])[:, :, 0]
                         else:
                             dx = solve_mx(rx)
                         dx = torch.where(fixed_x, 0.0, dx)
-                        ds = torch.matmul(J, dx[:, :, None])[:, :, 0] - rhs3
+                        ds = J.mv(dx) - rhs3
                         dy = Ds * ds - rhs2
                         if m_eq:
                             ds = torch.where(eq_mask, 0.0, ds)
@@ -1088,32 +1013,32 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     ineq_w = torch.where(eq_mask, 0.0, Ds_d) if m_eq else Ds_d
                     mxa = mx64.to(adt)
                     w_a = ineq_w.to(adt)
-                    gram = _gram(A_a, w_a)
+                    gram = A.to(adt).gram(w_a)
                     core = gram if is_lp else gram + Qsym_a
                     Mx = core * (mxa[:, :, None] * mxa[:, None, :]) + \
                         torch.diag_embed(Dx_diag.to(dt).to(adt))
                     solve_mx, _ = _make_spd_solver(Mx, sopts, use_f32,
                                                    out_dtype=dt, run=run)
                     if m_eq:
-                        Ae = _rows(A_d, eq_rows)
-                        MeJ = solve_mx(mx_d[:, :, None] * _T(Ae))
-                        S = torch.matmul(Ae, mx_d[:, :, None] * MeJ) + \
+                        Ae = A_d.rows(eq_rows)
+                        MeJ = solve_mx(mx_d[:, :, None] * Ae.data.mT)
+                        S = torch.matmul(Ae.data, mx_d[:, :, None] * MeJ) + \
                             1e-10 * torch.eye(m_eq, dtype=dt, device=dev)
                         solve_s, _ = _make_spd_solver(S, sopts, use_f32,
                                                       out_dtype=dt, run=run)
 
                     def raw_xyz(rhs1, rhs2, rhs3):
                         r2, r3 = rhs2.to(dt), rhs3.to(dt)
-                        rx = rhs1 + mx_d * _tv(A_d, ineq_w * r3 + r2)
+                        rx = rhs1 + mx_d * A_d.tv(ineq_w * r3 + r2)
                         rx = torch.where(fixed_x, 0.0, rx)
                         if m_eq:
                             t = solve_mx(rx)
-                            dy_eq = solve_s(_mv(Ae, mx_d * t) - r3[:, eq_rows])
+                            dy_eq = solve_s(Ae.mv(mx_d * t) - r3[:, eq_rows])
                             dx = t - torch.matmul(MeJ, dy_eq[:, :, None])[:, :, 0]
                         else:
                             dx = solve_mx(rx)
                         dx = torch.where(fixed_x, 0.0, dx)
-                        ds = _mv(A_d, dx) - r3
+                        ds = A_d.mv(dx) - r3
                         dy = Ds_d * ds - r2
                         if m_eq:
                             # equality slacks do not move; their
@@ -1130,13 +1055,12 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                         if cdt == F32:
                             if not is_lp:
                                 wdx = wdx + mx32 * ((mx32 * dxc) @ Qsym32)
-                            jt = _tv(A32, dyc)
-                            jdx = _mv(A32, dxc)
+                            jt = A_c.tv(dyc)
                         else:
                             if not is_lp:
                                 wdx = wdx + mx64 * ((mx64 * dxc) @ Qsym)
-                            jt = mx64 * _tv(A, dyc)
-                            jdx = _mv(A, dxc)
+                            jt = mx64 * A_c.tv(dyc)
+                        jdx = A_c.mv(dxc)
                         return wdx + jt, Ds.to(cdt) * dsc - dyc, jdx - dsc
 
                     def solve_xyz(rhs1, rhs2, rhs3, rounds):
@@ -1160,29 +1084,28 @@ def build_single_solver(sp: StagedProblem, opts: IPMOptions = IPMOptions(),
                     Ds_d = Ds.to(dt)
                     Hinv = torch.where(fixed_x, 0.0, 1.0 / Dx_diag).to(dt)
                     Ha = Hinv.to(adt)
-                    Mf = _row_gram(A_a, Ha) + \
+                    Mf = A.to(adt).row_gram(Ha) + \
                         torch.diag_embed((1.0 / Ds_d).to(adt))
                     solve_m, _ = _make_spd_solver(Mf, sopts, use_f32,
                                                   out_dtype=dt, run=run)
 
                     def raw_m(rhs1, rhs2, rhs3):
                         r1, r2 = rhs1.to(dt), rhs2.to(dt)
-                        rhs_y = _mv(A_d, Hinv * r1) - rhs3.to(dt) - r2 / Ds_d
+                        rhs_y = A_d.mv(Hinv * r1) - rhs3.to(dt) - r2 / Ds_d
                         dy = solve_m(rhs_y)
-                        dx = Hinv * (r1 - _tv(A_d, dy))
+                        dx = Hinv * (r1 - A_d.tv(dy))
                         ds = (dy + r2) / Ds_d
                         return dx, ds, dy
 
                     def solve_xyz(rhs1, rhs2, rhs3, rounds):
                         dx, ds, dy = raw_m(rhs1, rhs2, rhs3)
                         if use_f32:
-                            Ac = A32 if cdt == F32 else A
                             cDx, cDs = Dx_diag.to(cdt), Ds.to(cdt)
                             for _ in range(rounds):
                                 dxc, dsc, dyc = dx.to(cdt), ds.to(cdt), \
                                     dy.to(cdt)
-                                jt = _tv(Ac, dyc)
-                                jdx = _mv(Ac, dxc)
+                                jt = A_c.tv(dyc)
+                                jdx = A_c.mv(dxc)
                                 e1 = torch.where(
                                     fixed_x, 0.0,
                                     rhs1.to(cdt) - (cDx * dxc + jt))

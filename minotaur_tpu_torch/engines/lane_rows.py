@@ -1,31 +1,52 @@
-"""Per-lane constraint rows of one fixed sparsity pattern beside shared
-dense rows: the global path's constraint operator (`glob/glob_step.py`).
+"""The IPM's constraint operator in its three formats, behind one set of
+methods (`engines/ipm.py` asks nothing else of it):
 
-A lane's rows are the model's base rows, dense and the same in every
-lane, then the envelope rows of its box, whose nonzeros sit at (row,
-col) places fixed when the step is built and whose values are the
-lane's.  `RowPattern` holds the places and the index maps of every
-product; `LaneRows` holds one batch's values (B, nnz) in one dtype.  The
-IPM takes a `LaneRows` where it takes a dense (B, m, n) operator
-(`engines/ipm.py`: `_mv`, `_tv`, `_spmv`, `_gram`, `_row_gram`,
-`_rows`), so a lane of the 100-item QKP carries 14,868 values, not a
-(4957, 1339) matrix.
+- `SharedDense`: a dense (m, n) tensor, the same rows in every lane (the
+  host tree, the device pool, QG, root OBBT, the glob polish);
+- `LaneDense`: a dense (B, m, n) tensor, one matrix a lane (tests hold
+  the per-lane IPM to the JAX package's `vmap` through it, and the
+  structured form to it);
+- `LaneRows`: the global path's operator (`glob/glob_step.py`): the
+  model's base rows, dense and shared, then the envelope rows of each
+  lane's box, whose nonzeros sit at (row, col) places fixed when the step
+  is built and whose values are the lane's.  `RowPattern` holds the
+  places and the index maps of every product; `LaneRows` holds one
+  batch's values (B, nnz) in one dtype, so a lane of the 100-item QKP
+  carries 14,868 values, not a (4957, 1339) matrix.
 
-Every sum runs in an order fixed by the pattern (`_SegSum`): the terms
-of an output are gathered into a padded block and summed along it, never
-scattered with atomics, so a repeated call gives the same bits.  The
-weighted Gram A' diag(w) A is the base rows' dense rank-m_base product
-plus, for every pair of entries within an envelope row, w_r v_a v_b at
-(a, b); its pairs are listed once, when the pattern is built.
+`as_operator` turns what a caller passes (a tensor or a `LaneRows`) into
+its operator; it is the one place that looks at the operand's type.
+Each kind answers the same questions: `mv` (A x) and `tv` (A' y) per
+lane, `gram` (A' diag(w) A), `row_gram` (A diag(h) A'), `rows(idx)` (a
+dense operator of the selected rows), `split()` (the f64-class
+products: the hi/lo float32 split of a dense operator, or a `LaneRows`
+itself, which multiplies in float64), `to(dtype)` (one copy a dtype,
+kept) and `abs()`; and for the solve's route, `replayable` (a solve may
+replay a tape of CUDA graphs: the shared kind only) and `counts` (the
+count a solve's iterations add: `structured` on a `LaneRows`).  The
+dense kinds also give the per-lane expansion (`expand`) that the NL
+Jacobian starts from.  Each dense method is the torch call the IPM made
+on that kind of tensor, so the bits are the same.
+
+Every sum of a `LaneRows` runs in an order fixed by the pattern
+(`_SegSum`): the terms of an output are gathered into a padded block and
+summed along it, never scattered with atomics, so a repeated call gives
+the same bits.  The weighted Gram A' diag(w) A is the base rows' dense
+rank-m_base product plus, for every pair of entries within an envelope
+row, w_r v_a v_b at (a, b); its pairs are listed once, when the pattern
+is built.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..device import F32, F64
 
 # a padded block costs its slots plus about this many slots a lane for
 # the launches that one more block takes (`_buckets`)
@@ -240,29 +261,125 @@ class RowPattern:
         return self._row_gram
 
 
-class LaneRows:
+def as_operator(A) -> "_Operator":
+    """The operator of a solve's operand: an operator as it is, a dense
+    (m, n) tensor shared by every lane, or a dense (B, m, n) one."""
+    if isinstance(A, _Operator):
+        return A
+    return SharedDense(A) if A.dim() == 2 else LaneDense(A)
+
+
+class _Operator:
+    """What every kind shares: the copies in other dtypes, made once, and
+    the answers about the solve's route."""
+    __slots__ = ()
+    replayable = False      # a solve on it may replay a tape
+    counts = ()             # the counts each iteration of its solve adds
+
+    def to(self, dtype: torch.dtype) -> "_Operator":
+        """Itself in its own dtype; else its copy in `dtype`, made at the
+        first call and kept, so that later calls launch nothing."""
+        if dtype != self.dtype and dtype not in self._copies:
+            self._copies[dtype] = self._map(lambda t: t.to(dtype))
+        return self._copies.get(dtype, self)
+
+    def abs(self) -> "_Operator":
+        return self._map(torch.abs)
+
+
+class _Split:
+    """f64-class products of a float64 dense operator through its hi/lo
+    float32 split (hi + lo == A exactly; see the JAX spmv)."""
+
+    def __init__(self, A: "LaneDense"):
+        hi = A.data.to(F32)
+        self.hi, self.lo = type(A)(hi), type(A)((A.data - hi.to(F64)).to(F32))
+
+    def _prod(self, name: str, v64: torch.Tensor) -> torch.Tensor:
+        hi, lo = getattr(self.hi, name), getattr(self.lo, name)
+        vh = v64.to(F32)
+        vl = (v64 - vh.to(F64)).to(F32)
+        main = hi(vh)
+        corr = hi(vl) + lo(vh)
+        return main.to(F64) + corr.to(F64)
+
+    mv = functools.partialmethod(_prod, "mv")
+    tv = functools.partialmethod(_prod, "tv")
+
+
+class LaneDense(_Operator):
+    """A dense (B, m, n) operator, one matrix a lane (`data`)."""
+
+    def __init__(self, data: torch.Tensor):
+        self.data, self.dtype, self._copies = data, data.dtype, {}
+
+    def _map(self, fn) -> "LaneDense":
+        return type(self)(fn(self.data))
+
+    def split(self) -> _Split:
+        return _Split(self)
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(self.data, x.unsqueeze(-1)).squeeze(-1)
+
+    def tv(self, y: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(y.unsqueeze(-2), self.data).squeeze(-2)
+
+    def gram(self, w: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(self.data.mT * w[:, None, :], self.data)
+
+    def row_gram(self, h: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(self.data * h[:, None, :], self.data.mT)
+
+    def rows(self, idx: torch.Tensor) -> "LaneDense":
+        return type(self)(self.data.index_select(-2, idx))
+
+    def expand(self, B: int) -> torch.Tensor:
+        """The (B, m, n) tensor of every lane (a view)."""
+        return self.data.expand(B, *self.data.shape[-2:])
+
+    def jac_tv(self, y: torch.Tensor, jac) -> torch.Tensor:
+        """y' J per lane, J = jac(self) the (B, m, n) Jacobian of the rows
+        (the dual warm start's product)."""
+        return (y[:, None, :] @ jac(self))[:, 0]
+
+
+class SharedDense(LaneDense):
+    """A dense (m, n) operator, the same in every lane (`data`): the
+    per-lane kind's methods, with the products of one matrix."""
+    replayable = True
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.data.T
+
+    def tv(self, y: torch.Tensor) -> torch.Tensor:
+        return y @ self.data
+
+
+class LaneRows(_Operator):
     """A batch's constraint operator on a `RowPattern`: the shared base
     rows (in this operator's dtype) and `vals` (B, nnz), lane b's value
     of each slot.  The products that the IPM takes of a dense (B, m, n)
     operator, in `vals`' dtype."""
-    __slots__ = ("pattern", "vals", "base", "_blocks")
+    __slots__ = ("pattern", "vals", "base", "dtype", "_blocks", "_copies")
+    counts = ("structured",)
 
     def __init__(self, pattern: RowPattern, vals: torch.Tensor,
                  base: Optional[torch.Tensor] = None):
-        self.pattern, self.vals = pattern, vals
+        self.pattern, self.vals, self.dtype = pattern, vals, vals.dtype
         self.base = pattern.base.to(vals.dtype) if base is None else base
-        self._blocks = {}
+        self._blocks, self._copies = {}, {}
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.vals.dtype
+    def _map(self, fn) -> "LaneRows":
+        return LaneRows(self.pattern, fn(self.vals), fn(self.base))
 
-    def to(self, dtype: torch.dtype) -> "LaneRows":
-        return LaneRows(self.pattern, self.vals.to(dtype),
-                        self.base.to(dtype))
+    def split(self) -> "LaneRows":
+        """Itself: it multiplies in its own dtype (float64 here)."""
+        return self
 
-    def abs(self) -> "LaneRows":
-        return LaneRows(self.pattern, self.vals.abs(), self.base.abs())
+    def jac_tv(self, y: torch.Tensor, jac) -> torch.Tensor:
+        """A' y (linear rows only)."""
+        return self.tv(y)
 
     def _coef(self, name: str, sums):
         blocks = self._blocks.get(name)
@@ -291,10 +408,8 @@ class LaneRows:
         plus the block rows' pairs."""
         p = self.pattern
         g = p.gram_sums()
-        out = None
-        if p.m_base:
-            mb = p.m_base
-            out = torch.matmul(self.base.T * w[:, None, :mb], self.base)
+        out = SharedDense(self.base).gram(w[:, :p.m_base]) if p.m_base \
+            else None
         return g(self._coef("gram", g), w[:, p.m_base:], out)
 
     def row_gram(self, h: torch.Tensor) -> torch.Tensor:
@@ -309,7 +424,7 @@ class LaneRows:
             blocks = self._blocks["row_gram"] = g.coef_blocks(v)
         return g(blocks, h)
 
-    def rows(self, idx: torch.Tensor) -> torch.Tensor:
+    def rows(self, idx: torch.Tensor) -> LaneDense:
         """Rows `idx` of every lane, dense (B, len(idx), n)."""
         p = self.pattern
         B, k, n = self.vals.shape[0], idx.shape[0], p.n
@@ -328,13 +443,9 @@ class LaneRows:
             is_base = idx < p.m_base
             base = self.base[torch.clamp(idx, max=p.m_base - 1)]
             out = torch.where(is_base[None, :, None], base, out)
-        return out
+        return LaneDense(out)
 
     def dense(self) -> torch.Tensor:
         """The (B, m, n) operator."""
-        p = self.pattern
-        B = self.vals.shape[0]
-        out = self.vals.new_zeros((B, p.m, p.n))
-        out[:, :p.m_base] = self.base
-        out[:, p.m_base + p.rows_t, p.cols_t] = self.vals
-        return out
+        return self.rows(torch.arange(self.pattern.m,
+                                      device=self.vals.device)).data

@@ -84,8 +84,7 @@ class GlobBranchAndBound:
             fbbt_rounds=int(opts.get("fbbt_rounds")),
             rlt_cuts=int(opts.get("rlt_cuts")),
             ipm=IPMOptions(max_iters=int(opts.get("ipm_max_iters")),
-                           tol=float(opts.get("ipm_tol")),
-                           use_pallas=bool(opts.get("ipm_use_pallas"))))
+                           tol=float(opts.get("ipm_tol"))))
         self._step_opts = step_opts
         self._step = build_glob_step(self.gs, step_opts, self.device)
         # primal polish: fix integers at rounded batch solutions and

@@ -7,8 +7,8 @@
   rebuilt in the port's IR (profit 400).  The port's ub equals the JAX
   driver's within 1e-6 (1 + |opt|) and its lb lies below the oracle;
   both end SOLVED_OPTIMAL.  The glob driver always runs the IPM's mixed
-  policy (f32 factors: its IPMOptions take only max_iters, tol and
-  use_pallas from the options, as in the JAX package), and the two
+  policy (f32 factors: its IPMOptions take only max_iters and tol from
+  the options; the JAX package's take use_pallas too), and the two
   packages' f32 factors round differently (tests/test_torch_ipm.py), so
   the lanes' relaxation values differ in the last digits and the node
   counts may differ by a few nodes (pool: 175 against 177); they are

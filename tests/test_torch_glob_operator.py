@@ -1,5 +1,7 @@
-"""The glob step's per-lane operator (`engines/lane_rows.py`) against the
-dense (B, m, n) tensor that the step's row builders add up.
+"""The IPM's constraint operators (`engines/lane_rows.py`): the glob
+step's per-lane operator against the dense (B, m, n) tensor that the
+step's row builders add up, and the two dense kinds against
+`torch.einsum` of their tensors.
 
 - For every builder kind (McCormick and square rows, univariate rows, RLT
   rows, trilinear and quadrilinear hull rows) on random boxes, about a
@@ -10,6 +12,14 @@ dense (B, m, n) tensor that the step's row builders add up.
   `abs()`, the float32 copy and the selected rows exactly; the weighted
   Grams A' diag(w) A and A diag(h) A' within 1e-12 (float32: 1e-5) of
   their absolute sums, on the lanes whose values are finite.
+- The products, Grams, abs(), f32 copies and selected rows of every
+  kind: the structured one as above; the per-lane (B, m, n) and shared
+  (m, n) dense kinds on that tensor rounded to integers in [-8, 8] (and
+  lane 0's matrix for the shared one), with integer vectors and weights,
+  equal to `torch.einsum` exactly: every sum is exact, so any order of
+  summation gives the same value.  Their f64-class products (the hi/lo
+  split) equal the float64 einsum too, and the structured operator's is
+  itself.
 - The same input gives the same bits twice.
 - The IPM on the operator and on its dense form, on models whose lanes
   all converge or fail clearly: the same statuses and iteration counts,
@@ -36,7 +46,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from minotaur_tpu_torch.engines.ipm import IPMOptions
-from minotaur_tpu_torch.engines.lane_rows import LaneRows, RowPattern
+from minotaur_tpu_torch.engines.lane_rows import (LaneRows, RowPattern,
+                                                  as_operator)
 from minotaur_tpu_torch.glob import glob_step as gstep
 from minotaur_tpu_torch.glob.transformer import transform
 from minotaur_tpu_torch.glob.univariate import make_uni_fns
@@ -205,6 +216,23 @@ def _bits(t):
                                torch.int32)
 
 
+def _dense_kind(kind, D):
+    """The dense operator of `kind` and its tensor: D rounded to integers
+    in [-8, 8] (NaN as 0), per lane (B, m, n) or lane 0's (m, n) shared.
+    With integer vectors and weights in [-8, 8] every product and sum of
+    these tests is exact in float32 and float64."""
+    T = torch.clamp(torch.round(torch.nan_to_num(D, nan=0.0)), -8.0, 8.0)
+    T = T[0] if kind == "shared" else T
+    return as_operator(T), T, ("" if kind == "shared" else "b")
+
+
+def _ints(g, lo, hi, *shape):
+    return torch.randint(lo, hi + 1, shape, generator=g).to(F64)
+
+
+KINDS = ("structured", "lanes", "shared")
+
+
 def _close(got, want, scale, rtol, what):
     """Equal NaN and infinity patterns; finite entries within rtol of
     `scale` (the same sum over absolute values)."""
@@ -228,10 +256,27 @@ def test_dense_form_is_the_blocks_added_up(lanes):
     assert A.vals.shape[1] < D.shape[1] * D.shape[2]
 
 
-def test_products_match_the_dense_tensor(lanes):
+@pytest.mark.parametrize("kind", KINDS)
+def test_products_match_the_dense_tensor(lanes, kind):
     name, gs, A, D, _ = lanes
     g = torch.Generator().manual_seed(3)
     B, m, n = D.shape
+    if kind != "structured":
+        op, T, b = _dense_kind(kind, D)
+        x, y = _ints(g, -8, 8, B, n), _ints(g, -8, 8, B, m)
+        mv, tv = f"{b}mn,bn->bm", f"{b}mn,bm->bn"
+        for dt in (F64, F32):
+            o, t, xd, yd = op.to(dt), T.to(dt), x.to(dt), y.to(dt)
+            what = (name, kind, dt)
+            assert torch.equal(o.mv(xd), torch.einsum(mv, t, xd)), what
+            assert torch.equal(o.tv(yd), torch.einsum(tv, t, yd)), what
+            assert torch.equal(o.abs().tv(yd.abs()),
+                               torch.einsum(tv, t.abs(), yd.abs())), what
+        assert torch.equal(op.split().mv(x), torch.einsum(mv, T, x))
+        assert torch.equal(op.split().tv(y), torch.einsum(tv, T, y))
+        assert torch.equal(op.expand(B), T.expand(B, m, n))
+        return
+    assert A.split() is A
     x = torch.randn(B, n, generator=g, dtype=F64)
     y = torch.randn(B, m, generator=g, dtype=F64)
     Dabs = D.abs()
@@ -248,19 +293,38 @@ def test_products_match_the_dense_tensor(lanes):
            f"{name} |A|' |y|")
 
 
-def test_selected_rows_are_the_dense_rows(lanes):
+@pytest.mark.parametrize("kind", KINDS)
+def test_selected_rows_are_the_dense_rows(lanes, kind):
     name, gs, A, D, eq = lanes
     m = D.shape[1]
+    if kind != "structured":
+        A, D, _ = _dense_kind(kind, D)
     picks = [eq, torch.tensor([0, m - 1]), torch.tensor([m - 1, 0, m // 2]),
              torch.arange(m)]
     for idx in picks:
-        assert torch.equal(_bits(A.rows(idx)), _bits(D[:, idx])), (name, idx)
-        assert torch.equal(_bits(A.to(F32).rows(idx)),
-                           _bits(D[:, idx].to(F32)))
+        want = D[..., idx, :]
+        assert torch.equal(_bits(A.rows(idx).data), _bits(want)), (name, idx)
+        assert torch.equal(_bits(A.to(F32).rows(idx).data),
+                           _bits(want.to(F32)))
 
 
-def test_weighted_grams_match_the_dense_tensor(lanes):
+@pytest.mark.parametrize("kind", KINDS)
+def test_weighted_grams_match_the_dense_tensor(lanes, kind):
     name, gs, A, D, _ = lanes
+    if kind != "structured":
+        op, T, b = _dense_kind(kind, D)
+        g = torch.Generator().manual_seed(4)
+        B, m, n = D.shape
+        w, h = _ints(g, 0, 8, B, m), _ints(g, 0, 8, B, n)
+        gram, row_gram = f"{b}mi,bm,{b}mj->bij", f"{b}in,bn,{b}jn->bij"
+        for dt in (F64, F32):
+            o, t, wd, hd = op.to(dt), T.to(dt), w.to(dt), h.to(dt)
+            G = o.gram(wd)
+            assert torch.equal(G, torch.einsum(gram, t, wd, t)), (name, dt)
+            assert torch.equal(G, G.transpose(1, 2))
+            assert torch.equal(o.row_gram(hd),
+                               torch.einsum(row_gram, t, hd, t)), (name, dt)
+        return
     ok = torch.isfinite(A.vals).all(dim=1)
     assert ok.sum() >= 4, name
     A = LaneRows(A.pattern, A.vals[ok])
@@ -299,7 +363,7 @@ def test_a_repeated_call_gives_the_same_bits(lanes):
         h = torch.rand(16, gs.n, generator=g, dtype=F64)
         A32 = A.to(F32)
         outs.append([A.vals, clb, cub, A.mv(x), A.tv(y), A.gram(w),
-                     A32.gram(w.to(F32)), A.row_gram(h), A.rows(eq),
+                     A32.gram(w.to(F32)), A.row_gram(h), A.rows(eq).data,
                      A32.tv(y.to(F32))])
     for a, b in zip(*outs):
         assert torch.equal(_bits(a), _bits(b)), name

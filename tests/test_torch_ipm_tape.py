@@ -13,6 +13,10 @@ with every K1 and K2 call and every host read run eagerly between them.
   outputs, the loops' state in place, a loop body recorded in a later
   solve.  The `replayed` count of `ipm.solve` counts the iterations run
   from a recorded body.
+- The route, under that stand-in: of the three operator kinds only the
+  shared one records a tape and replays it; a per-lane dense operator
+  and a `LaneRows` stay eager, and only the `LaneRows` solves count
+  `structured`, one for each iteration.
 - On the card (`cuda` tests): the graphed path against the eager one on
   the main path's shape; a key seen once is not captured; per-lane
   operators and NL models stay eager; the cache drops its least recently
@@ -35,6 +39,7 @@ from torch.utils._pytree import tree_leaves
 
 from minotaur_tpu_torch.engines import ipm
 from minotaur_tpu_torch.engines.ipm import IPMOptions, build_single_solver
+from minotaur_tpu_torch.engines.lane_rows import LaneRows, RowPattern
 from minotaur_tpu_torch.engines.staging import stage_problem
 from minotaur_tpu_torch.ir.functions import (Function, LinearFunction,
                                              QuadraticFunction)
@@ -354,6 +359,38 @@ def test_a_loop_body_recorded_in_a_later_solve(cpu_graphs):
                                          ipm._Loop)])
     # recorded with phase 1's body only; the tail's comes with the root box
     assert bodies == [[True, False], [True, True], [True, True]]
+
+
+def test_only_a_shared_operator_replays(cpu_graphs):
+    """Three solves on each operator kind, each kind through a solver of
+    its own: the shared one replays its tape at the third solve; the
+    per-lane dense one and a `LaneRows` (the model's one row as an
+    envelope row of every lane) stay eager, and only the `LaneRows`
+    solves count `structured`."""
+    sp = stage_problem(intquad(12, 4, 1))
+    opts = IPMOptions(**POLICIES["mixed"])
+    B = 4
+    A, clb, cub, lo, hi, x0 = _args(sp, "cpu", B)
+    cols = np.nonzero(sp.A.reshape(sp.m, sp.n)[0])[0]
+    pattern = RowPattern(A[:0], np.zeros(len(cols), np.int64), cols, 1)
+    kinds = {"shared": A, "lanes": A.expand(B, sp.m, sp.n).contiguous(),
+             "structured": LaneRows(pattern, A[0, cols].expand(B, -1))}
+    for kind, op in kinds.items():
+        solve = build_single_solver(sp, opts, "cpu")
+        counts = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU]):
+                solve(op, clb, cub, lo, hi, x0)
+            counts.append([r.counts for r in trace.spans()
+                           if r.name == "ipm.solve"][-1])
+        iters = [c["iters"] for c in counts]
+        replayed = [c["replayed"] for c in counts]
+        if kind == "shared":
+            assert len(solve.tapes) == 1 and replayed[2] == iters[2] > 0
+        else:
+            assert len(solve.tapes) == 0 and replayed == [0, 0, 0], kind
+        assert [c.get("structured") for c in counts] == \
+            (iters if kind == "structured" else [None] * 3), kind
 
 
 # --------------------------------------------------------------- the card
