@@ -10,8 +10,9 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
      late panel and from a NaN) under every cluster size the dispatch can
      pick, bit-equal to its one-CTA design;
   4. K2 (spd_solve) against its plain PyTorch version on the card, and
-     its cluster design at (16, 1024) and (64, 1378) with refinement 1-3
-     under every cluster size the dispatch can pick, bit-equal to its
+     its cluster design at (16, 1024), (64, 1378), (64, 1339) and
+     (16, 1339) (odd k: f32 rows that start 4 bytes off) with refinement
+     1-3 under every cluster size the dispatch can pick, bit-equal to its
      one-CTA design;
   5. the batched IPM through the kernels against the IPM through the
      plain versions, on intquad(300): the root box plus 63 seeded boxes,
@@ -51,7 +52,9 @@ Runs the port's main path once on one NVIDIA GPU and checks it:
      (objectives within 1e-6) and the driver's mixed policy (certified
      bounds held; lanes at the iteration cap may end OPTIMAL in one run
      and ITERATION_LIMIT in the other), with K1 f32 at
-     (64, 1378, 1378) and K2 refine 2 at (64, 1378) timed against plain;
+     (64, 1378, 1378) and K2 refine 2 at (64, 1378) timed against plain,
+     and K2 refine 2 at the QKP lane's odd (64, 1339), bit-equal to its
+     one-CTA design, timed against one CTA and plain;
      (b) GlobBranchAndBound on qknap(100, 0.25, 0) at B=64 (capped),
      sound, with nodes/s and launch counts, and bilinear_pooling(64)
      (capped) against its analytic optimum; (c) the `mglob` CLI on a
@@ -152,10 +155,11 @@ CKPT = dict(node_cap=320, time_cap=10.0)
 # lanes (full width: 1378 columns, 5113 rows a lane), its search capped
 # at time_cap seconds (10b); bilinear_pooling(pairs, 0) capped at
 # pool_cap; mglob on qknap(cli_n) (10c); obbt 1 on qknap(obbt_n) capped
-# at obbt_cap (10d); the searches' caps are short so that all fifteen
-# phases fit in the script's 1200 s
+# at obbt_cap (10d); K2 at (B, odd_k), the QKP cell's lane (10a); the
+# searches' caps are short so that all fifteen phases fit in the script's
+# 1200 s
 GLOB = dict(n=100, density=0.25, seed=0, B=64, time_cap=15.0, pairs=64,
-            pool_cap=8.0, cli_n=16, obbt_n=24, obbt_cap=15.0)
+            pool_cap=8.0, cli_n=16, obbt_n=24, obbt_cap=15.0, odd_k=1339)
 # phase 11: the multi-device layer on one card: `parts` partitions of
 # B / parts lanes; 11b runs DistQGBranchAndBound on normcon(n, seed)
 # capped at node_cap nodes and time_cap seconds; 11d runs `mqgmpi --spawn
@@ -339,9 +343,11 @@ def k1_cluster_cases(dev):
 
 def k2_cluster_cases(dev):
     """K2's cluster design with refinement 1-3 at (16, 1024) and (64, 1378),
-    R = 1 and 3, f32 factor and operator with f64 r and x, and f64
-    throughout: each through one CTA a lane and every cluster size the
-    dispatch can pick, against plain (values, residual) and bit for bit
+    whose f32 rows load pairs from element 0, and at the QKP lane's odd
+    (64, 1339) and (16, 1339), whose f32 rows start 4 bytes off on every
+    other row; R = 1 and 3, f64 r and x, (factor, operator) f32/f32,
+    f32/f64 and f64/f64: each through one CTA a lane and every cluster size
+    the dispatch can pick, against plain (values, residual) and bit for bit
     against the one-CTA design.  Returns the runs."""
     import itertools
     import torch
@@ -349,14 +355,14 @@ def k2_cluster_cases(dev):
         spd_solve_plain
     F32, F64 = torch.float32, torch.float64
     runs = 0
-    for B, k in ((16, 1024), (64, 1378)):
+    for B, k in ((16, 1024), (64, 1378), (64, 1339), (16, 1339)):
         M, dinv, shift, minv32, minv64 = k2_inputs(dev, B, k, 77 * k + B)
         g = torch.Generator(device=dev).manual_seed(k + B)
-        for R, steps, fdt in itertools.product((1, 3), (1, 2, 3),
-                                               (F32, F64)):
+        for R, steps, (fdt, mdt) in itertools.product(
+                (1, 3), (1, 2, 3), ((F32, F32), (F32, F64), (F64, F64))):
             r = torch.randn((B, k, R), generator=g, dtype=F64, device=dev)
-            args = (minv32 if fdt == F32 else minv64, M.to(fdt),
-                    dinv.to(fdt), shift.to(fdt), r[:, :, 0] if R == 1 else r,
+            args = (minv32 if fdt == F32 else minv64, M.to(mdt),
+                    dinv.to(mdt), shift.to(mdt), r[:, :, 0] if R == 1 else r,
                     steps, F64)
             px = spd_solve_plain(*args)
             tol = 1e-5 if fdt == F32 else 1e-11
@@ -364,7 +370,7 @@ def k2_cluster_cases(dev):
             for C in (1,) + K2_CLUSTERS:
                 x = spd_solve_cuda(*args, cluster=C)
                 torch.cuda.synchronize()
-                what = (B, k, R, steps, str(fdt), f"C={C}")
+                what = (B, k, R, steps, str(fdt), str(mdt), f"C={C}")
                 err = (x - px).abs().max().item()
                 check(err <= tol * px.abs().max().item(),
                       f"K2 vs plain {err:.3g} at {what}")
@@ -574,7 +580,8 @@ def phase_k2(record):
     main_err = worst[(F32, F32, F64, F64)]
     say(f"[4] K2 spd_solve ok on {ncase} cases (k 1..1000, B 1/64, R 1/3/8, "
         f"refine 0/1/3, 4 dtype combos) and {n_cl} cluster-design runs "
-        f"((16,1024) and (64,1378), R 1/3, refine 1-3, f32 and f64 factors, "
+        f"((16,1024), (64,1378), (64,1339) and (16,1339), R 1/3, refine 1-3, "
+        f"f32/f32, f32/f64 and f64/f64 factor/operator, "
         f"one-CTA and C = {'/'.join(map(str, K2_CLUSTERS))}, bit-equal to one "
         f"CTA): max|kernel-plain| "
         + ", ".join(f"{'/'.join(str(d)[6:] for d in key)} {v:.3g}"
@@ -1132,6 +1139,46 @@ def f32_kernels_vs_plain(B, k, seeds, steps=2):
     del M, minv32, m32, args
     torch.cuda.empty_cache()
     return k1, k2
+
+
+def k2_odd_vs_plain(B, k, seed, steps=2):
+    """K2 at an odd order k with the glob IPM's call (f32 factor and
+    operator, f64 r and x, refine `steps`), where every other f32 row
+    starts 4 bytes off: the launcher's design against plain (values,
+    residual) and bit for bit against one CTA a lane, with the device ms
+    of both designs and of plain (CUDA graph replay).  Returns a dict."""
+    import torch
+    from minotaur_tpu_torch.ops.spd_solve import (spd_solve, spd_solve_cuda,
+                                                  spd_solve_design,
+                                                  spd_solve_plain)
+    dev = torch.device(DEVICE)
+    F32, F64 = torch.float32, torch.float64
+    M, dinv, shift, minv32, _minv64 = k2_inputs(dev, B, k, seed)
+    del _minv64
+    r = torch.randn((B, k), dtype=F64, device=dev)
+    args = (minv32, M.float(), dinv.float(), shift.float(), r, steps, F64)
+    x = spd_solve(*args)
+    x1 = spd_solve_cuda(*args, cluster=1)
+    px = spd_solve_plain(*args)
+    torch.cuda.synchronize()
+    what = f"K2 at ({B},{k}) refine {steps}"
+    k2 = dict(max_abs_err=(x - px).abs().max().item(),
+              resid=((r - (M @ x[:, :, None])[:, :, 0] - shift * x).norm() /
+                     r.norm()).item(),
+              design=design_name(spd_solve_design(B, k, 1, F32, F32, steps)))
+    check(torch.equal(x, x1), f"{what}: {k2['design']} differs from one CTA")
+    check(k2["max_abs_err"] <= 1e-5 * px.abs().max().item(),
+          f"{what} vs plain {k2['max_abs_err']:.3g}")
+    check(k2["resid"] < 1e-4, f"{what}: residual {k2['resid']:.3g}")
+    k2.update(ms=graph_ms(lambda: spd_solve(*args), calls=10, reps=3),
+              one_cta_ms=graph_ms(lambda: spd_solve_cuda(*args, cluster=1),
+                                  calls=10, reps=3),
+              plain_ms=graph_ms(lambda: spd_solve_plain(*args), calls=10,
+                                reps=3))
+    k2["bound_ms"], k2["bound_by"] = k2_bound(B, k, 4, 4, steps=steps)
+    del M, minv32, args
+    torch.cuda.empty_cache()
+    return k2
 
 
 def kernels_line(B, k, steps, k1, k2):
@@ -1750,6 +1797,19 @@ def phase_glob_step(record):
     k1, k2 = f32_kernels_vs_plain(B, gs.n, (23, 29))
     say("[10a] " + kernels_line(B, gs.n, 2, k1, k2))
     record_kernels(record, "glob_", "glob_", k1, k2)
+    # the QKP lane's odd order (qkp-ghs-100-25: 1339 columns)
+    k = GLOB["odd_k"]
+    odd = k2_odd_vs_plain(B, k, 31)
+    say(f"[10a] K2 spd_solve ({B},{k}) [{odd['design']}] f32 factor and "
+        f"operator, f64 r and x, refine 2: bit-equal to one CTA, "
+        f"max|kernel-plain| {odd['max_abs_err']:.3g}, resid "
+        f"{odd['resid']:.3g}; device ms (CUDA graph replay) kernel "
+        f"{odd['ms']:.4f} one CTA {odd['one_cta_ms']:.4f} plain "
+        f"{odd['plain_ms']:.4f} bound {odd['bound_ms']:.4f} "
+        f"({odd['bound_by']})")
+    record["spd_solve"].update({"glob_odd_" + key: odd[key] for key in
+                                ("max_abs_err", "ms", "one_cta_ms",
+                                 "plain_ms", "bound_ms", "design")})
     record["glob_step_launches"] = counts
 
 

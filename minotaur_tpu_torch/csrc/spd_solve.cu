@@ -27,11 +27,7 @@ extern "C" int mt_spd_solve_design(int B, int k, int R, int sf, int sm,
                                    int steps) {
   if (steps <= 0) return 0;
   int C = 1;
-  // the wrappers' tensors start 16-byte aligned, so every row loads 8
-  // bytes or more at a time where k is even (16-byte vectors, f32 pairs)
-  // or the type is f64
-  const bool wide = (sf == 8 || k % 2 == 0) && (sm == 8 || k % 2 == 0);
-  const cudaError_t err = refine_design(B, k, R, sf, sm, wide, &C);
+  const cudaError_t err = refine_design(B, k, R, sf, sm, &C);
   return err != cudaSuccess ? -static_cast<int>(err) : C;
 }
 

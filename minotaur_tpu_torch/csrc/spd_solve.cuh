@@ -38,12 +38,14 @@
 // with 16-byte loads (float4 / double2; the vector path, taken when every
 // row starts 16-byte aligned: k % 4 == 0 in f32, k % 2 == 0 in f64, and
 // aligned base pointers), or one element a load on the scalar path (other
-// k, e.g. 1378 in f32), each lane summing its elements in the same order
-// on both.  Rows are reduced with warp shuffles.  The cluster design takes
-// several steps of a lane at once (warp_rows_batched), and on the scalar
-// path loads f32 rows of even k as 8-byte pairs, handing each element to
-// the lane that sums it with shuffles (warp_rows_pairs); neither changes a
-// sum.
+// k, e.g. 1378 or 1339 in f32), each lane summing its elements in the same
+// order on both.  Rows are reduced with warp shuffles.  The cluster design
+// takes several steps of a lane at once (warp_rows_batched), and on the
+// scalar path loads f32 rows as 8-byte pairs, handing each element to the
+// lane that sums it with shuffles: from element 0 where every row starts
+// 8-byte aligned (even k, warp_rows_pairs), else from each row's first
+// 8-byte boundary (odd k, where every other row starts 4 bytes off, or a
+// base 4 bytes off: warp_rows_odd); none changes a sum.
 //  - refine 0: a grid of (ceil(k / kRowsPerCta), B) CTAs of 8 warps (640
 //    CTAs at (64, 300), four resident per SM).  Each CTA scales the lane's
 //    right-hand sides into shared memory (in chunks of columns that fit
@@ -59,14 +61,12 @@
 //    the norm is summed in the one-CTA order, so x has the same bits.
 //    B * C SMs pull from HBM.
 // The launcher picks the refining design from (B, k) (refine_design, the
-// one place of the threshold): the cluster where every row loads 8 bytes
-// or more at a time (k even, or f64) and k >= kClusterMinKS = 256, with
-// the largest C <= kMaxClusterS = 4 that keeps B * C within the SMs (C = 2
-// at B = 64, 4 at B = 16), else one CTA (odd k in f32: 4-byte loads, where
-// the cluster lost before the pair loads; f64 at odd k is not measured).
-// Device ms, f32 refine 2 unless stated (NVIDIA H100 80GB HBM3, 700 W,
-// tools/kernel_designs.py), one CTA against the cluster the launcher
-// picks at and above the threshold, or C = 2 and 4 below it:
+// one place of the threshold): the cluster from k >= kClusterMinKS = 256,
+// at even and odd k and in both types, with the largest C <= kMaxClusterS
+// = 4 that keeps B * C within the SMs (C = 2 at B = 64, 4 at B = 16), else
+// one CTA.  Device ms, f32 refine 2 unless stated (NVIDIA H100 80GB HBM3,
+// 700 W, tools/kernel_designs.py), one CTA against the cluster the
+// launcher picks at and above the threshold, or C = 2 and 4 below it:
 //   below:  (64, 128) 0.0152 / 0.0215, 0.0669; (16, 128) 0.0149 / 0.0212,
 //           0.0241; (64, 192) 0.0306 / 0.0309, 0.0741; (16, 192) 0.0309
 //           / 0.0297, 0.0263;
@@ -76,13 +76,33 @@
 //           (16, 300) 0.0489 / 0.0372; (64, 512) 0.1574 / 0.1471;
 //           (16, 512) 0.1010 / 0.0476; (64, 1024) 0.5702 / 0.5215 (3.1
 //           TB/s; plain 0.6049), f64 refine 3 1.9308 / 1.3630; (16, 1024)
-//           0.4306 / 0.1597; (64, 1378) 2.6786 / 1.0167 (2.9 TB/s; plain
-//           1.0828).
-// So the crossover lies between 192, where one CTA ties or wins at B = 64,
-// and 256, where the cluster ties or wins at every measured B and dtype.
-// Earlier runs of the same tool: at (16, 1024) C = 8 took 0.2095 (more
-// barrier and copy than stream a CTA), so C stops at 4; at (64, 1378)
-// 4-byte loads took the cluster 1.2467, so odd k in f32 stays on one CTA.
+//           0.4306 / 0.1597; (64, 1378) 2.6745 / 1.0613 (2.7 TB/s; plain
+//           1.0817).
+// At odd k (f32 refine 2 with f64 r and x, as the glob IPM calls it):
+//   below:  (64, 193) 0.0446 / 0.0566, 0.1161; (16, 193) 0.0435 / 0.0556,
+//           0.0398;
+//   at:     (64, 257) 0.0683 / 0.0815 (C = 2); (16, 257) 0.0667 / 0.0598
+//           (C = 4);
+//   above:  (64, 301) 0.1620 / 0.1083; (64, 1339) 2.5601 / 1.0978 (2.5
+//           TB/s over six passes; plain 1.0257); (16, 1339) 2.3694 /
+//           0.4949; (64, 1377) 2.6702 / 1.1536.
+// So the crossover lies between 192-193, where one CTA ties or wins at
+// B = 64, and 256-273, where the designs tie within the runs' spread (at
+// (64, 257) one CTA read 0.0683-0.0956 and the cluster 0.0796-0.0825 over
+// three runs; at (64, 273) 0.0935-0.1054 against 0.0850), the cluster
+// winning above at every measured B, type and parity: one threshold
+// serves both parities.  Earlier runs of the same tool: at (16, 1024)
+// C = 8 took 0.2095 (more barrier and copy than stream a CTA), so C stops
+// at 4; with 4-byte loads on its odd rows the cluster took (64, 1339)
+// 2.1461-2.1723 and (16, 1339) 0.8124, which is why odd k stayed on one
+// CTA before warp_rows_odd; warp_rows_odd with four shuffles a pair of
+// elements, as warp_rows_pairs has, took (64, 1339) 1.2250-1.2303, and
+// with the halves first swapped between lanes j and j + 16 (three
+// shuffles) and no work on blocks past k, 1.0725-1.0743 in kernels of its
+// own.  Both f32 engines now share one kernel, where warp_rows_pairs
+// shared it with a 4-byte loop before (128 registers either way; 268
+// bytes of spill stores, 1044 with the loop): (64, 1378) reads 1.0613
+// against 1.0166 beside the loop, and (64, 1339) 1.0978 against 1.0743.
 // A cluster that cannot be placed or a failed cudaLaunchKernelEx is
 // returned as an error; nothing falls back.
 
@@ -222,6 +242,88 @@ __device__ __forceinline__ void warp_rows_pairs(const T* __restrict__ A,
   for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = warp_sum(acc[r]);
 }
 
+// The scalar path of warp_rows_batched for the f32 rows that
+// warp_rows_pairs does not take (odd k, or a base 4 bytes off): each row
+// loads pairs from its first 8-byte boundary, decided from its own
+// address.  A row that starts aligned (s = 0) pairs the elements (2 j,
+// 2 j + 1), with a last element left over (k - s odd) loaded alone as the
+// x of pair (k - 1 - s) / 2; one that starts 4 bytes off (s = 1) loads
+// element 0 alone and pairs (2 j + 1, 2 j + 2).  Lane l loads pair 32 m + l
+// of block m, so with s = 1 block m's pairs hold its elements 64 m + 1 ..
+// 64 m + 64, and element 64 m is lane 31's last y of block m - 1 (`carry`;
+// for m = 0 the lone element 0).  Shuffles give lane l the elements l and
+// l + 32 of each block, the ones it sums on the scalar path, in that order.
+template <typename T, typename TA, int kB>
+__device__ __forceinline__ void warp_rows_odd(const T* __restrict__ A, int k,
+                                              int row0, const T* v,
+                                              TA (&acc)[kRowsPerWarp]) {
+  const float2* rows[kRowsPerWarp];
+  int s[kRowsPerWarp];
+  float carry[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const T* p = A + static_cast<long long>(min(row0 + r, k - 1)) * k;
+    s[r] = static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 1u);
+    rows[r] = reinterpret_cast<const float2*>(p + s[r]);
+    carry[r] = s[r] ? p[0] : 0.f;
+  }
+  const int ln = threadIdx.x & 31;
+  for (int m0 = 0; m0 * 64 < k; m0 += kB) {
+    float2 a[kB][kRowsPerWarp];
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      const int pi = (m0 + b) * 32 + ln;
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const int np2 = (k - s[r]) >> 1;        // whole pairs of the row
+        a[b][r] = pi < np2 ? rows[r][pi]
+                  : pi == np2 && 2 * pi + s[r] < k
+                      ? make_float2(reinterpret_cast<const T*>(rows[r])[2 * pi],
+                                    0.f)
+                      : make_float2(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      if ((m0 + b) * 64 >= k) break;           // warp-uniform
+      const int e0 = (m0 + b) * 64 + ln, e1 = e0 + 32;
+      float v0[kRowsPerWarp], v1[kRowsPerWarp];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        // lanes j and j + 16 swap halves, so lane j holds places 2 j and
+        // 2 j + 32 of the block's stream of pairs (w1, w2) and lane j + 16
+        // places 2 j + 1 and 2 j + 33; i: the place of element e0 (-1: the
+        // carry, and e1 is lane 31's w1)
+        const float2 p = a[b][r];
+        const bool lo = ln < 16;
+        const float t = __shfl_xor_sync(0xffffffffu, lo ? p.y : p.x, 16);
+        const float w1 = lo ? p.x : t, w2 = lo ? t : p.y;
+        const int i = ln - s[r];
+        const int src = i < 0 ? 31 : (i >> 1) + ((i & 1) << 4);
+        const float q1 = __shfl_sync(0xffffffffu, w1, src);
+        const float q2 = __shfl_sync(0xffffffffu, w2, src);
+        v0[r] = i < 0 ? carry[r] : q1;
+        v1[r] = i < 0 ? q1 : q2;
+        if (s[r]) carry[r] = __shfl_sync(0xffffffffu, w2, 31);
+      }
+      if (e0 < k) {
+        const T u0 = v[e0];
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r)
+          acc[r] += static_cast<TA>(v0[r]) * static_cast<TA>(u0);
+      }
+      if (e1 < k) {
+        const T u1 = v[e1];
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r)
+          acc[r] += static_cast<TA>(v1[r]) * static_cast<TA>(u1);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = warp_sum(acc[r]);
+}
+
 // warp_rows for the cluster design, the same sums in the same order: a
 // lane takes kU of its steps at once, all loads first (the last group
 // masked), so a row costs ceil(k / (32 W kU)) load latencies instead of
@@ -247,13 +349,16 @@ __device__ __forceinline__ void warp_rows_batched(const T* __restrict__ A,
   const P* col = reinterpret_cast<const P*>(v);
   const int np = k / W;
   if constexpr (!kVec && sizeof(T) == 4) {
-    // f32 rows of even k on an 8-byte-aligned base (`pairs`): load pairs,
-    // and hand each element to the lane that sums it on the scalar path
-    // (lane e % 32) with shuffles, so the sums keep their order
-    if (pairs) {
+    // f32 rows load pairs, from element 0 where every row starts 8-byte
+    // aligned (`pairs`: even k on an 8-byte-aligned base), else from each
+    // row's first 8-byte boundary, and hand each element to the lane that
+    // sums it on the scalar path (lane e % 32) with shuffles, so the sums
+    // keep their order
+    if (pairs)
       warp_rows_pairs<T, TA, kU / 2>(A, k, row0, v, acc);
-      return;
-    }
+    else
+      warp_rows_odd<T, TA, kU / 2>(A, k, row0, v, acc);
+    return;
   }
   for (int p = threadIdx.x & 31; p < np; p += 32 * kU) {
     P a[kU][kRowsPerWarp], u[kU];
@@ -717,12 +822,12 @@ cudaError_t refine_in_smem(int k, int R, size_t sf, size_t sm, bool* fits) {
 
 // The design of a refining call (steps > 0) for B lanes of order k: 1 (one
 // CTA a lane), else the cluster size.  The one place that sets the
-// threshold (the times that set it are in the header note).  The cluster
-// design needs the vectors in shared memory.
+// threshold, at even and at odd k (the times that set it are in the header
+// note).  The cluster design needs the vectors in shared memory.
 cudaError_t refine_design(int B, int k, int R, size_t sf, size_t sm,
-                          bool wide, int* C) {
+                          int* C) {
   *C = 1;
-  if (k < kClusterMinKS || !wide) return cudaSuccess;
+  if (k < kClusterMinKS) return cudaSuccess;
   bool fits = false;
   cudaError_t err = refine_in_smem(k, R, sf, sm, &fits);
   if (err != cudaSuccess || !fits) return err;
@@ -743,7 +848,9 @@ cudaError_t refine_design(int B, int k, int R, size_t sf, size_t sm,
 template <typename TF, typename TM, typename TR, typename TO>
 int launch(const void* minv_, const void* mop_, const void* dinv_,
            const void* shift_, const void* r_, void* x_, void* scratch_,
-           int B, int k, int R, int steps, int cluster, void* stream_) {
+           int B, int k, int R, int steps, int cluster, void* stream_,
+           int* design) {
+  if (design) *design = 0;
   if (B <= 0 || k <= 0 || R <= 0) return 0;
   if (steps < 0) return static_cast<int>(cudaErrorInvalidValue);
   const TF* minv = static_cast<const TF*>(minv_);
@@ -780,21 +887,21 @@ int launch(const void* minv_, const void* mop_, const void* dinv_,
   const bool vec = k % Pack<TF, true>::W == 0 &&
                    k % Pack<TM, true>::W == 0 && aligned16(minv) &&
                    aligned16(mop);
-  // the scalar path's f32 rows load pairs where they start 8-byte aligned
+  // the cluster's scalar path loads f32 rows in pairs: from element 0
+  // where every row starts 8-byte aligned (`pairs`), else from each row's
+  // first 8-byte boundary
   const int pairs = (k % 2 == 0 && aligned8(minv) ? 1 : 0) |
                     (k % 2 == 0 && aligned8(mop) ? 2 : 0);
-  // every row loads 8 bytes or more at a time
-  const bool wide = vec || ((sizeof(TF) == 8 || (pairs & 1)) &&
-                            (sizeof(TM) == 8 || (pairs & 2)));
   int C = cluster;
   if (C <= 0) {
-    err = refine_design(B, k, R, sizeof(TF), sizeof(TM), wide, &C);
+    err = refine_design(B, k, R, sizeof(TF), sizeof(TM), &C);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   // 1, 2 or 4 CTAs a lane: the sizes the dispatch picks
   if ((C != 1 && C != 2 && C != kMaxClusterS) ||
       static_cast<long long>(B) * C > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (design) *design = C;
   bool fits = false;
   err = refine_in_smem(k, R, sizeof(TF), sizeof(TM), &fits);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -834,13 +941,15 @@ int launch(const void* minv_, const void* mop_, const void* dinv_,
 // r: (B, k, R) TR; x: (B, k, R) TO, all contiguous; scratch as above;
 // cluster: 0 for the launcher's design, 1 for one CTA a lane, 2 or 4 for
 // that cluster size (refine > 0 only; a cluster that cannot be placed is
-// an error, never another design).  Named mt_spd_solve_<TF>_<TM>_<TR>_<TO>.
-// Returns a cudaError_t.
+// an error, never another design); design: null, or where the host gets
+// the design the call took (0 at refine 0, 1 one CTA a lane, else the
+// cluster size; 0 for an empty call).  Named
+// mt_spd_solve_<TF>_<TM>_<TR>_<TO>.  Returns a cudaError_t.
 #define MT_SPD_SOLVE(NAME, TF, TM, TR, TO)                                    \
   extern "C" int NAME(const void* minv, const void* mop, const void* dinv,    \
                       const void* shift, const void* r, void* x,              \
                       void* scratch, int B, int k, int R, int steps,          \
-                      int cluster, void* stream) {                            \
+                      int cluster, void* stream, int* design) {               \
     return launch<TF, TM, TR, TO>(minv, mop, dinv, shift, r, x, scratch, B,   \
-                                  k, R, steps, cluster, stream);              \
+                                  k, R, steps, cluster, stream, design);      \
   }

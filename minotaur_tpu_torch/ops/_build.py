@@ -124,8 +124,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                    "f32_f32_f64_f64", "f32_f64_f64_f64", "f64_f64_f64_f64"):
         fn = getattr(lib, f"mt_spd_solve_{suffix}")
         # (minv, m_op, dinv, shift, r, x, scratch, B, k, R, refine_steps,
-        #  cluster, stream)
-        fn.argtypes = [p] * 7 + [i, i, i, i, i, p]
+        #  cluster, stream, design: int * written with the design taken)
+        fn.argtypes = [p] * 7 + [i, i, i, i, i, p, ctypes.POINTER(i)]
         fn.restype = i
     # (k, R, factor itemsize, operator itemsize, refine_steps) -> bytes of
     # global scratch per lane

@@ -21,11 +21,12 @@ kernel `csrc/spd_solve.cuh` and nothing else.  `spd_solve.launches`
 counts calls that launched it (one kernel per call).  At refine 0 the
 kernel runs a grid of 32-row blocks times lanes (every main-path call).
 With refinement the C launcher picks one of two designs from (B, k)
-(`spd_solve_design` reports it): one CTA a lane, or, where rows load 8
-bytes or more at a time (k even, or f64) and k >= 256, a thread-block
-cluster of C CTAs a lane (C = 2 at B = 64, 4 at B = 16), each CTA on
-its own SM streaming a block of rows, the slices of each new vector
-copied between them through distributed shared memory.  Both are bound by the bytes of Minv_s and M
+(`spd_solve_design` reports it): one CTA a lane, or, from k = 256, a
+thread-block cluster of C CTAs a lane (C = 2 at B = 64, 4 at B = 16),
+each CTA on its own SM streaming a block of rows in loads of 8 bytes or
+more (float32 rows in pairs from their first 8-byte boundary, at odd k
+too), the slices of each new vector copied between them through
+distributed shared memory.  Both are bound by the bytes of Minv_s and M
 streamed from HBM, by B or B * C SMs; both sum every row and the
 monotone test's norm in one order, so they return the same bits.  A
 cluster that cannot be placed raises; nothing falls back.  Float64 `r`
@@ -33,12 +34,15 @@ and a float64 result are read and written by the kernel itself, so the
 IPM's mixed policy (float32 operator, float64 vectors) runs no cast
 kernels around the call.
 
-Each call is a `k2` span (utils/trace.py).
+Each call is a `k2` span (utils/trace.py) with two counts: `refining`,
+1 where refine_steps > 0, and `cluster`, 1 where the launcher took a
+cluster design (it reports the design it took; 0 on the CPU).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -107,6 +111,15 @@ def spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps: int,
     (`spd_solve_design`), 1 one CTA a lane, 2 or 4 a cluster of that many
     CTAs a lane, the sizes the launcher picks (refine 0 always takes the
     row-block grid).  A cluster that cannot be placed on the card raises."""
+    return _solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps,
+                       out_dtype, cluster)[0]
+
+
+def _solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps: int,
+                out_dtype: Optional[torch.dtype],
+                cluster: int) -> Tuple[torch.Tensor, int]:
+    """spd_solve_cuda, and the design the launcher took (0: refine 0 or
+    no launch, 1: one CTA a lane, else the cluster size)."""
     _shapes(minv_s, m_op, dinv, shift, r)
     md = m_op.dtype
     if (minv_s.dtype, md) not in _PAIRS:
@@ -126,8 +139,8 @@ def spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps: int,
                          f"{CLUSTER_ARGS}")
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps,
-                                  out_dtype, cluster)
+            return _solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps,
+                               out_dtype, cluster)
     B, k = minv_s.shape[0], minv_s.shape[1]
     R = 1 if r.dim() == 2 else r.shape[2]
     od = out_dtype or md
@@ -139,6 +152,7 @@ def spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps: int,
     dv = (dinv if dinv.dtype == md else dinv.to(md)).contiguous()
     sh = (shift if shift.dtype == md else shift.to(md)).contiguous()
     x = torch.empty(r.shape, dtype=xd, device=dev)
+    design = ctypes.c_int(0)
     if B and k and R:
         lib = _build.load_library()
         fn = getattr(lib, "mt_spd_solve_" + "_".join(
@@ -158,10 +172,11 @@ def spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps: int,
                  sh.data_ptr(), rr.data_ptr(), x.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), B, k, R,
                  int(refine_steps), int(cluster),
-                 torch.cuda.current_stream().cuda_stream)
+                 torch.cuda.current_stream().cuda_stream,
+                 ctypes.byref(design))
         _build.check(err, "spd_solve kernel launch")
         spd_solve.launches += 1
-    return x if xd == od else x.to(od)
+    return (x if xd == od else x.to(od)), design.value
 
 
 def spd_solve_design(B: int, k: int, R: int, factor_dtype, operator_dtype,
@@ -183,10 +198,13 @@ def spd_solve_design(B: int, k: int, R: int, factor_dtype, operator_dtype,
 def spd_solve(minv_s, m_op, dinv, shift, r, refine_steps: int = 0,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Solve M x = r for every lane through the scaled explicit inverse."""
-    with trace.span("k2"):
+    with trace.span("k2", refining=int(refine_steps > 0), cluster=0):
         if minv_s.device.type == "cuda":
-            return spd_solve_cuda(minv_s, m_op, dinv, shift, r, refine_steps,
-                                  out_dtype)
+            x, design = _solve_cuda(minv_s, m_op, dinv, shift, r,
+                                    refine_steps, out_dtype, 0)
+            if design > 1:
+                trace.count("cluster", 1)
+            return x
         if minv_s.device.type != "cpu":
             raise ValueError(
                 f"spd_solve: unsupported device {minv_s.device}")

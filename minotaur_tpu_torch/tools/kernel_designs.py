@@ -40,13 +40,18 @@ K1_SHAPES = [(64, 300, "f32"), (64, 300, "f64"), (16, 1024, "f32"),
 # (B, k, factor, operator, refine steps): the main path's call (refine 0,
 # the row-block grid whatever the cluster argument) and the IPM's refining
 # calls (f32 factor and operator with f64 r and x; the NL path's f64),
-# then orders from 128 to 512 that place the threshold
+# then orders from 128 to 512 that place the threshold, then odd orders
+# (f32 rows that start 4 bytes off on every other row): the QKP lane's
+# 1339 and orders about the threshold
 K2_SHAPES = [(64, 300, "f32", 0), (64, 1378, "f32", 2), (16, 1024, "f32", 2),
              (64, 1024, "f32", 2), (64, 1024, "f64", 3),
              (64, 128, "f32", 2), (64, 192, "f32", 2), (64, 256, "f32", 2),
              (64, 300, "f32", 2), (64, 256, "f64", 3), (64, 300, "f64", 3),
              (16, 128, "f32", 2), (16, 192, "f32", 2), (16, 256, "f32", 2),
-             (16, 300, "f32", 2), (64, 512, "f32", 2), (16, 512, "f32", 2)]
+             (16, 300, "f32", 2), (64, 512, "f32", 2), (16, 512, "f32", 2),
+             (64, 1339, "f32", 2), (16, 1339, "f32", 2), (64, 1377, "f32", 2),
+             (64, 193, "f32", 2), (16, 193, "f32", 2), (64, 257, "f32", 2),
+             (16, 257, "f32", 2), (64, 301, "f32", 2)]
 # one CTA a lane, then the cluster sizes the launchers take (C = 8 lost to
 # C = 4 at B = 16: the header notes)
 CLUSTERS = (1, 2, 4)

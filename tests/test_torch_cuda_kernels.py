@@ -233,18 +233,10 @@ def test_spd_inverse_cluster_design(cuda, B, k, defect, dtype):
         assert torch.equal(minv, ref)
 
 
-@pytest.mark.parametrize("fdt", [F32, F64])
-@pytest.mark.parametrize("steps", [1, 2, 3])
-@pytest.mark.parametrize("R", [1, 3])
-@pytest.mark.parametrize("B,k", [(16, 1024), (64, 1378)])
-def test_spd_solve_cluster_design(cuda, B, k, R, steps, fdt):
-    M, dinv, shift, minv32, minv64 = _solve_setup(cuda, B, k)
-    g = torch.Generator(device=cuda).manual_seed(9)
-    r = torch.randn((B, k, R), generator=g, dtype=F64, device=cuda)
-    args = (minv32 if fdt == F32 else minv64, M.to(fdt), dinv.to(fdt),
-            shift.to(fdt), r[:, :, 0] if R == 1 else r, steps, F64)
+def _designs_agree(args, tol):
+    """Every design of K2_DESIGNS within `tol` of plain and bit for bit
+    equal to one CTA a lane."""
     px = spd_solve_plain(*args)
-    tol = 1e-5 if fdt == F32 else 1e-12
     ref = None
     for C in K2_DESIGNS:
         n0 = spd_solve.launches
@@ -254,15 +246,56 @@ def test_spd_solve_cluster_design(cuda, B, k, R, steps, fdt):
         assert (x - px).abs().max() <= tol * px.abs().max()
         if ref is None:
             ref = x
-        assert torch.equal(x, ref)
+        assert torch.equal(x, ref), C
+
+
+# the partition shape and the glob shapes at even and odd k (the QKP lane,
+# k = 1339, whose f32 rows start 4 bytes off on every other row), at B = 64
+# and 16, and an odd k just above the threshold; (factor, operator) dtypes
+# f32/f32 (the glob IPM), f32/f64 and f64/f64
+@pytest.mark.parametrize("fdt,mdt", [(F32, F32), (F32, F64), (F64, F64)])
+@pytest.mark.parametrize("steps", [1, 2, 3])
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("B,k", [(16, 1024), (64, 1378), (64, 1339),
+                                 (16, 1339), (64, 257)])
+def test_spd_solve_cluster_design(cuda, B, k, R, steps, fdt, mdt):
+    M, dinv, shift, minv32, minv64 = _solve_setup(cuda, B, k)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    r = torch.randn((B, k, R), generator=g, dtype=F64, device=cuda)
+    args = (minv32 if fdt == F32 else minv64, M.to(mdt), dinv.to(mdt),
+            shift.to(mdt), r[:, :, 0] if R == 1 else r, steps, F64)
+    _designs_agree(args, 1e-5 if fdt == F32 else 1e-12)
+
+
+@pytest.mark.parametrize("k", [1339, 1378])
+def test_spd_solve_cluster_design_on_a_base_4_bytes_off(cuda, k):
+    """Minv_s and M as contiguous views at element 1 of larger f32
+    buffers, so every row of an even k and every other row of an odd k
+    starts 4 bytes off an 8-byte boundary."""
+    B = 16
+    M, dinv, shift, minv32, _ = _solve_setup(cuda, B, k)
+    n = B * k * k
+
+    def off(t):
+        buf = torch.empty(n + 1, dtype=F32, device=cuda)
+        v = buf[1:].view(B, k, k)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 8 == 4
+        return v
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    r = torch.randn((B, k), generator=g, dtype=F64, device=cuda)
+    _designs_agree((off(minv32), off(M.float()), dinv.float(), shift.float(),
+                    r, 2, F64), 1e-5)
 
 
 def test_designs_at_the_table_shapes(cuda):
     """The dispatch's picks at the shapes the port's paths give the
     kernels: the main path's (64, 300) keeps one CTA a lane (and K2's
     refine-0 grid), the wide lanes and short batches take clusters, K2's
-    at k = 1378 in f32 through its pair loads; at an odd k in f32 K2
-    keeps one CTA.  The thresholds: K1 from k = 384, K2 from k = 256."""
+    in f32 through its pair loads at even k (1378) and at odd k (the QKP
+    lane's 1339).  The thresholds: K1 from k = 384, K2 from k = 256 at
+    even and at odd k."""
     assert spd_inverse_design(64, 300) == 1
     assert spd_inverse_design(64, 1024) == 2
     assert spd_inverse_design(64, 1378) == 2
@@ -272,7 +305,10 @@ def test_designs_at_the_table_shapes(cuda):
     assert spd_solve_design(64, 1024, 1, F32, F32, 2) == 2
     assert spd_solve_design(64, 1024, 1, F64, F64, 3) == 2
     assert spd_solve_design(64, 1378, 1, F32, F32, 2) == 2
-    assert spd_solve_design(64, 1377, 1, F32, F32, 2) == 1
+    assert spd_solve_design(64, 1339, 1, F32, F32, 2) == 2
+    assert spd_solve_design(16, 1339, 1, F32, F32, 2) == 4
+    assert spd_solve_design(64, 255, 1, F32, F32, 2) == 1
+    assert spd_solve_design(64, 257, 1, F32, F32, 2) == 2
     assert spd_inverse_design(64, 383) == 1
     assert spd_inverse_design(64, 384) == 2
     assert spd_solve_design(64, 255, 1, F64, F64, 3) == 1

@@ -22,9 +22,14 @@
 - On one batch the summed `lane_iters` equals the lanes' returned
   iterations (a QP batch's closing ratcheted step adds one to each lane
   that ended on no sentinel; an NL batch has none).
+- A `k2` span counts `refining` as refine_steps asks and, on the CPU, no
+  `cluster`; the benchmark's `k2.cluster_share` reads `cluster` over
+  `refining` from such spans, and nothing from spans without the counts
+  or a slice with no refining call.
 """
 
 import collections
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -38,6 +43,7 @@ from minotaur_tpu_torch.engines.staging import stage_problem
 from minotaur_tpu_torch.glob.glob_bnb import GlobBranchAndBound
 from minotaur_tpu_torch.models import generators as G
 from minotaur_tpu_torch.models.convex_suite import SUITE
+from minotaur_tpu_torch.ops.spd_solve import spd_solve
 from minotaur_tpu_torch.utils import trace
 from minotaur_tpu_torch.utils.environment import Environment
 from minotaur_tpu_torch.utils.trace import Tracer, self_ns
@@ -333,3 +339,48 @@ def test_lane_iters_on_an_nl_batch():
     rec, iters, _ = _one_batch(gen(), IPMOptions(max_iters=40), lanes=4,
                                seed=1)
     assert rec.counts["lane_iters"] == iters.sum() > 0
+
+
+# ---- K2's design counts ----------------------------------------------------
+
+
+@pytest.mark.parametrize("steps", [0, 2])
+def test_k2_span_counts_refining_and_no_cluster_on_the_cpu(steps):
+    g = torch.Generator().manual_seed(steps)
+    B, k = 3, 5
+    A = torch.randn(B, k, k, generator=g, dtype=torch.float64)
+    M = A @ A.transpose(1, 2) + k * torch.eye(k, dtype=torch.float64)
+    ones = torch.ones(B, k, dtype=torch.float64)
+    r = torch.randn(B, k, generator=g, dtype=torch.float64)
+    with _profile():
+        spd_solve(torch.linalg.inv(M), M, ones, 1e-3 * ones, r, steps)
+    (rec,) = [x for x in trace.spans() if x.name == "k2"]
+    assert rec.counts == {"refining": int(steps > 0), "cluster": 0}
+
+
+def _cluster_share(monkeypatch, spans, traced=True):
+    from benchmark.harness.registry import metric
+    recs = [SimpleNamespace(name=name, t1=t1, counts=counts)
+            for name, t1, counts in spans]
+    monkeypatch.setattr(trace, "spans", lambda: recs)
+    return metric("k2.cluster_share").read(
+        {"trace": {"kernel_s": {}} if traced else None, "calls": []})
+
+
+def test_cluster_share_reads_cluster_over_refining(monkeypatch):
+    on = {"refining": 1, "cluster": 1}
+    spans = [("k2", 5, on), ("k2", 6, {"refining": 1, "cluster": 0}),
+             ("k2", 7, {"refining": 0, "cluster": 0}), ("k2", 8, dict(on)),
+             ("ipm.solve", 9, {"refining": 4, "cluster": 0}),
+             ("k2", 0, {"refining": 1, "cluster": 0})]     # still open
+    assert _cluster_share(monkeypatch, spans) == pytest.approx(200.0 / 3)
+    assert _cluster_share(monkeypatch, spans, traced=False) is None
+
+
+@pytest.mark.parametrize("counts", [{}, {"refining": 0, "cluster": 0}])
+def test_cluster_share_reads_nothing_without_refining_calls(monkeypatch,
+                                                            counts):
+    """Spans without the counts (a program that does not report its
+    design) or with no refining call read nothing."""
+    spans = [("k2", 5, dict(counts)), ("k2", 6, dict(counts))]
+    assert _cluster_share(monkeypatch, spans) is None
